@@ -1,14 +1,19 @@
-"""aad_tpu_torch — the AAD codec's decode path in PyTorch, with CUDA kernels for Hopper.
+"""aad_tpu_torch — the AAD codec's decode and encode paths in PyTorch, with
+CUDA kernels for Hopper.
 
 A port of ``aad_tpu`` (JAX/Pallas) to PyTorch and hand-written CUDA C++ for
-the H100 (``sm_90a``). It keeps ``aad_tpu``'s module names and decodes
-bit-identically to it. It imports torch and numpy only, never jax or
-``aad_tpu``.
+the H100 (``sm_90a``). It keeps ``aad_tpu``'s module names, decodes
+bit-identically to it and encodes to the same bytes as its scan engine. It
+imports torch and numpy only, never jax or ``aad_tpu``.
 
 Public surface:
 
     decode(data, device="cuda")       -> (HeaderInfo, pcm[C, N] int32)
     Decoder.from_header(h, device)    -> reusable decoder; output stays on device
+    encode(pcm, config, device="cuda", parallel_blocks=False, ...) -> .aad bytes
+    Encoder.from_config(config, device, ...) -> reusable encoder;
+                                         encode_payload_ondevice stays on device
+    EncodeConfig                      -> encoder parameters
     decode_header / encode_header / validate_header / HeaderInfo
     compute_block_geometry / geometry_from_header / calculate_block_size
 
@@ -17,6 +22,7 @@ Public surface:
 """
 
 from .codec.decoder import Decoder, decode
+from .codec.encoder import EncodeConfig, Encoder, encode
 from .codec.result import (
     AadError,
     ApiResult,
@@ -56,6 +62,8 @@ __all__ = [
     "CH_PROCESS_NONE",
     "CODEC_VERSION",
     "Decoder",
+    "EncodeConfig",
+    "Encoder",
     "FILE_HEADER_SIZE",
     "FILTER_ORDER",
     "FORMAT_VERSION",
@@ -71,6 +79,7 @@ __all__ = [
     "compute_block_geometry",
     "decode",
     "decode_header",
+    "encode",
     "encode_header",
     "encoded_stream_size",
     "geometry_from_header",

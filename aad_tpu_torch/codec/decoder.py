@@ -57,19 +57,8 @@ from ..format.geometry import (
 from ..format.header import HeaderInfo, decode_header, validate_header
 from ..ops import cseman as cs
 from ..ops.fused_decode import decode_lanes, stepsize_corrections
+from .device import resolve_device
 from .result import InsufficientDataError, InvalidArgumentError
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested, but torch.cuda.is_available() is False")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    elif device.type != "cpu":
-        raise InvalidArgumentError(f"unsupported device: {device}")
-    return device
 
 
 def _decode_lanes_pcm(
@@ -112,7 +101,7 @@ class Decoder:
         geo = geometry_from_header(
             header.num_channels, header.bits_per_sample, header.block_size
         )
-        device = _resolve_device(device)
+        device = resolve_device(device)
         stepsize_corrections(device)  # probes the kernel's table once per process
         return cls(header=header, geometry=geo, device=device)
 

@@ -17,8 +17,32 @@ __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
 }
 
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+
 __device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+
+// -x with wraparound: -INT32_MIN is INT32_MIN, as C's ABS macro gives it.
+__device__ __forceinline__ int32_t wneg(int32_t x) { return wsub(0, x); }
+
+// C `<<` on int32 with wraparound (0 <= n < 32).
+__device__ __forceinline__ int32_t wshl(int32_t x, int n) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x) << n);
+}
+
+// (int32)(x * x): the reference's wrapping squared error
+// (src/aad_encoder.c:459-461). It enters the int64 sum negative when
+// |x| > 46340.
+__device__ __forceinline__ int32_t wrapped_square(int32_t x) { return wmul(x, x); }
+
+// The reference's `min_rmse > tmp_rmse` on int64 sums of wrapped squares: a
+// negative sum is sqrt(NaN) there and never compares true, so both sums must
+// be non-negative and the candidate strictly smaller (ops/cseman.py).
+__device__ __forceinline__ bool sse_better(long long cand, long long best) {
+  return cand >= 0 && best >= 0 && cand < best;
 }
 
 // C `>>` on int32: arithmetic (nvcc shifts signed operands arithmetically).

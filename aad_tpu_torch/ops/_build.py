@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``aad_tpu_torch/csrc`` have a plain C interface. At first
-use they are compiled by ``nvcc`` for ``sm_90a`` into one shared library,
+use each ``.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library,
 which is loaded with ctypes. No PyTorch headers are involved, so a build
 takes seconds.
 
@@ -23,12 +24,14 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "aad_tpu_torch"
 LIB_NAME = "libaad_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +43,14 @@ _SIGNATURES = {
     "aad_decode_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # step_table, out, device, stream
     "aad_stepsize_probe": (_P, _P, _I, _P),
+    # samples, prev0, valid, step_index, history, weight, step_table,
+    # index_table, codes, headers, states, num_blocks, num_lanes, nspb,
+    # bits_per_sample, num_trials, warm_on_prev, blocks_before, device, stream
+    "aad_encode_stream": (_P,) * 11 + (_I,) * 8 + (_P,),
+    # samples, step_index, history, weight, valid, step_table, index_table,
+    # codes, step_index_out, history_out, weight_out, sse_out, num_lanes,
+    # num_codes, bits_per_sample, device, stream
+    "aad_encode_pass": (_P,) * 12 + (_I,) * 4 + (_P,),
 }
 
 
@@ -88,17 +99,28 @@ def build(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
         try:
             if lib.is_file():  # built by another process while we waited
                 return lib
-            tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            tag = os.getpid()
+            tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+            srcs = sorted(CSRC.glob("*.cu"))
+            objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for cmd in cmds]  # one nvcc per source, all at once
+            results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+            link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                    *(str(obj) for obj in objs)]
+            if all(rc == 0 for _, _, rc in results):
+                proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                results.append((link, proc.stdout, proc.returncode))
             (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+                "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
             )
-            if proc.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            failed = [(cmd, out, rc) for cmd, out, rc in results if rc != 0]
+            if failed:
+                cmd, out, rc = failed[0]
+                raise KernelBuildError(f"{' '.join(cmd)} failed ({rc}):\n{out[-4000:]}")
             os.replace(tmp, lib)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -120,6 +142,12 @@ def library() -> ctypes.CDLL:
     lib.aad_error_string.argtypes = [ctypes.c_int]
     lib.aad_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch_target(device) -> tuple[int, int]:
+    """(device index, current CUDA stream handle): the last two arguments
+    of every kernel entry point."""
+    return device.index, torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -119,7 +119,7 @@ def decode_lanes(
         codes_tm.data_ptr(), step_index.data_ptr(), history.data_ptr(),
         weight.data_ptr(), stepsize_table(device).data_ptr(),
         index_table(bits_per_sample, device).data_ptr(), out.data_ptr(),
-        L, T, bits_per_sample, device.index, torch.cuda.current_stream(device).cuda_stream,
+        L, T, bits_per_sample, *_build.launch_target(device),
     )
     _build.check(lib, DECODE_KERNEL, err)
     launches[DECODE_KERNEL] += 1
@@ -144,8 +144,7 @@ def stepsize_probe(device) -> torch.Tensor:
     out = torch.empty(STEPSIZE_TABLE_SIZE, dtype=torch.int32, device=device)
     lib = _build.library()
     err = lib.aad_stepsize_probe(
-        stepsize_table(device).data_ptr(), out.data_ptr(), device.index,
-        torch.cuda.current_stream(device).cuda_stream,
+        stepsize_table(device).data_ptr(), out.data_ptr(), *_build.launch_target(device),
     )
     _build.check(lib, PROBE_KERNEL, err)
     launches[PROBE_KERNEL] += 1

@@ -1,20 +1,63 @@
-"""Per-sample decode transitions on torch int32 tensors (decode subset).
+"""Per-sample codec transitions on torch int32 tensors.
 
 The torch counterparts of ``aad_tpu.ops.transitions``: pure functions over a
 leading lane shape ``(...,)``, bit-exact with the reference decode step
-(reference: src/aad_decoder.c:269-318). The tables live on the device of
-the tensor they are applied to.
+(reference: src/aad_decoder.c:269-318) and encode step
+(src/aad_encoder.c:343-410). The tables live on the device of the tensor
+they are applied to. Not ported: ``step_index_prefix`` (the associative
+scan of the non-default ``pallas`` decode engine).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..constants import STEP_INDEX_MAX, STEPSIZE_TABLE_SIZE, TABLES_FLOAT_0_5, TABLES_FLOAT_DIGITS
+from ..constants import (
+    FILTER_ORDER,
+    FIXEDPOINT_0_5,
+    FIXEDPOINT_DIGITS,
+    LMSFILTER_SHIFT,
+    STEP_INDEX_MAX,
+    STEPSIZE_TABLE_SIZE,
+    TABLES_FLOAT_0_5,
+    TABLES_FLOAT_DIGITS,
+)
 from ..tables import INDEX_TABLES, STEPSIZE_TABLE
 from . import cseman as cs
+
+
+class CodecState(NamedTuple):
+    """Adaptive-predictor state of a lane shape ``(...,)``; the same for
+    encoder and decoder (as ``aad_tpu.ops.transitions.CodecState``)."""
+
+    history: torch.Tensor     # (..., 4) int32, [0] = newest sample
+    weight: torch.Tensor      # (..., 4) int32, Q15 filter weights
+    step_index: torch.Tensor  # (...)    int32, Q4 step-size index
+
+    @classmethod
+    def zeros(cls, lane_shape=(), device="cpu") -> "CodecState":
+        z = functools.partial(torch.zeros, dtype=torch.int32, device=device)
+        return cls(z((*lane_shape, FILTER_ORDER)), z((*lane_shape, FILTER_ORDER)), z(tuple(lane_shape)))
+
+    @classmethod
+    def from_numpy(cls, state, device="cpu") -> "CodecState":
+        """Any (history, weight, step_index) triple of arrays -> int32 tensors."""
+        return cls(*(torch.as_tensor(np.asarray(a), dtype=torch.int32).to(device) for a in state))
+
+    def numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(history, weight, step_index) as int32 numpy arrays."""
+        return tuple(a.cpu().numpy().astype(np.int32) for a in self)
+
+    def to(self, device) -> "CodecState":
+        return CodecState(*(a.to(device) for a in self))
+
+    def map(self, fn) -> "CodecState":
+        """Apply ``fn`` to every leaf."""
+        return CodecState(*(fn(a) for a in self))
 
 
 @functools.cache
@@ -58,3 +101,67 @@ def quantized_diff(stepsize: torch.Tensor, code: torch.Tensor, bits_per_sample: 
     code = code.to(torch.int32)
     mag = cs.asr(stepsize * (((code & (signbit - 1)) << 1) + 1), bits_per_sample - 1)
     return torch.where((code & signbit) != 0, -mag, mag)
+
+
+def predict(history: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Q15 4-tap prediction (reference: src/aad_decoder.c:291-295).
+
+    The sum is written as int32 adds so that it wraps as in C (``torch.sum``
+    would promote to int64).
+    """
+    acc = history[..., 0] * weight[..., 0] + FIXEDPOINT_0_5
+    for k in range(1, FILTER_ORDER):
+        acc = acc + history[..., k] * weight[..., k]
+    return cs.asr(acc, FIXEDPOINT_DIGITS)
+
+
+def _apply_qdiff(state: CodecState, qdiff: torch.Tensor, pred: torch.Tensor) -> tuple[CodecState, torch.Tensor]:
+    """Shared tail of both transitions: reconstruct, adapt weights, shift history.
+
+    (reference: src/aad_decoder.c:297-315 == src/aad_encoder.c:391-406)
+    """
+    sample = cs.clip16(qdiff + pred)
+    wdelta = cs.asr(qdiff[..., None] * state.history + FIXEDPOINT_0_5, FIXEDPOINT_DIGITS + LMSFILTER_SHIFT)
+    history = torch.cat([sample[..., None], state.history[..., : FILTER_ORDER - 1]], dim=-1)
+    return CodecState(history, state.weight + wdelta, state.step_index), sample
+
+
+def encode_sample(
+    state: CodecState, sample: torch.Tensor, bits_per_sample: int
+) -> tuple[CodecState, torch.Tensor, torch.Tensor]:
+    """One encode step; returns (state', code, qdiff).
+
+    The residual is quantised, then the decoder's own state update runs on
+    the quantised value, which keeps encoder and decoder in lockstep
+    (reference: src/aad_encoder.c:343-410). ``qdiff`` is the quantisation
+    error the trial search accumulates (src/aad_encoder.c:389, 461).
+    """
+    signbit = 1 << (bits_per_sample - 1)
+    stepsize = stepsize_from_index(state.step_index)
+    pred = predict(state.history, state.weight)
+    diff = sample.to(torch.int32) - pred
+    neg = diff < 0
+    diffabs = torch.where(neg, -diff, diff)
+    # code = min(|diff| * 2**(bps-2) / stepsize, absmask), C division
+    # (reference: src/aad_encoder.c:372)
+    scaled = cs.shl(diffabs, bits_per_sample - 2)
+    code = torch.clamp(cs.trunc_div(scaled, stepsize), max=signbit - 1)
+    code = torch.where(neg, code | signbit, code)
+    qdiff = quantized_diff(stepsize, code, bits_per_sample)
+    state = state._replace(step_index=update_step_index(state.step_index, code, bits_per_sample))
+    state, _ = _apply_qdiff(state, qdiff, pred)
+    return state, code, qdiff
+
+
+def seed_history(state: CodecState, first_samples: torch.Tensor, valid) -> CodecState:
+    """Load the first FILTER_ORDER samples into history, newest last-in.
+
+    ``first_samples`` is (..., 4) = samples 0..3 of the block; entries at
+    positions >= ``valid`` are zeroed, as the encoder's seed loop does for
+    short blocks (reference: src/aad_encoder.c:606-616). history[k] receives
+    sample[3-k].
+    """
+    pos = torch.arange(FILTER_ORDER, device=first_samples.device)
+    valid = torch.as_tensor(valid, device=first_samples.device)
+    samples = torch.where(pos < valid[..., None], first_samples.to(torch.int32), 0)
+    return state._replace(history=samples.flip(-1))
