@@ -8,21 +8,34 @@ imports torch and numpy only, never jax or ``aad_tpu``.
 
 Public surface:
 
-    decode(data, device="cuda")       -> (HeaderInfo, pcm[C, N] int32)
-    Decoder.from_header(h, device)    -> reusable decoder; output stays on device
+    decode(data, device="cuda", engine="auto") -> (HeaderInfo, pcm[C, N] int32)
+    Decoder.from_header(h, device, engine)     -> reusable decoder; output stays
+                                         on device; decode_block_range /
+                                         decode_time_range for seeks
+    decode_batch(streams, device, engine) -> [(HeaderInfo, pcm[C, N] int16)],
+                                         one kernel launch per geometry
+    StreamingDecoder(device, engine)  -> push bytes, get samples per whole block
     encode(pcm, config, device="cuda", parallel_blocks=False, ...) -> .aad bytes
     Encoder.from_config(config, device, ...) -> reusable encoder;
                                          encode_payload_ondevice stays on device
+    StreamingEncoder(config, device, total_samples) -> push PCM chunks, get bytes
     EncodeConfig                      -> encoder parameters
+    transcode(data, device=, engine=, bits_per_sample=, ...) -> .aad bytes
+    encode_file(wav, aad, device=...) / decode_file(aad, wav, device=, engine=)
     decode_header / encode_header / validate_header / HeaderInfo
     compute_block_geometry / geometry_from_header / calculate_block_size
 
 ``device="cuda"`` runs the CUDA kernels (built with nvcc at first use);
-``device="cpu"`` runs their plain torch versions.
+``device="cpu"`` runs their plain torch versions. The decode ``engine`` is
+``"auto"``/``"fused"`` (one kernel for the whole recurrence) or ``"pallas"``
+(phase A as torch ops, then the LMS kernel), with ``aad_tpu``'s names.
 """
 
+from .codec.batch import decode_batch
 from .codec.decoder import Decoder, decode
 from .codec.encoder import EncodeConfig, Encoder, encode
+from .codec.streaming import StreamingDecoder, StreamingEncoder
+from .codec.transcode import transcode
 from .codec.result import (
     AadError,
     ApiResult,
@@ -51,6 +64,7 @@ from .format.geometry import (
     lenient_prefix,
 )
 from .format.header import HeaderInfo, decode_header, encode_header, validate_header
+from .io import decode_file, encode_file
 
 __version__ = "0.1.0"
 
@@ -75,14 +89,20 @@ __all__ = [
     "MAX_BITS_PER_SAMPLE",
     "MAX_NUM_CHANNELS",
     "MIN_BITS_PER_SAMPLE",
+    "StreamingDecoder",
+    "StreamingEncoder",
     "calculate_block_size",
     "compute_block_geometry",
     "decode",
+    "decode_batch",
+    "decode_file",
     "decode_header",
     "encode",
+    "encode_file",
     "encode_header",
     "encoded_stream_size",
     "geometry_from_header",
     "lenient_prefix",
+    "transcode",
     "validate_header",
 ]

@@ -1,4 +1,4 @@
-"""The device an entry point runs on, shared by ``Decoder`` and ``Encoder``.
+"""The device an entry point runs on, shared by every entry point of the package.
 
 ``"cuda"`` launches the CUDA kernels and raises when no card is present;
 ``"cpu"`` runs their plain torch versions. Nothing moves to the CPU on its

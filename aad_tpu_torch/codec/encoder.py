@@ -25,8 +25,8 @@ payload is assembled as bytes on the device), the channel-major folded
 lanes of the parallel mode (a (8, 128) tiling concern), and
 ``_bucket_blocks`` (jit reuse). Not yet ported: the native C++ engine and
 ``encode()``'s ``auto`` dispatch to it (the ``device`` argument picks the
-engine here), ``batch_encode``, streaming, transcode, and the CUDA-stream
-overlap of the chunked sequential encode's transfers.
+engine here), ``batch_encode``, and the CUDA-stream overlap of the chunked
+sequential encode's transfers. Streaming encode is ``codec.streaming``.
 """
 
 from __future__ import annotations

@@ -51,6 +51,8 @@ _SIGNATURES = {
     # codes, step_index_out, history_out, weight_out, sse_out, num_lanes,
     # num_codes, bits_per_sample, device, stream
     "aad_encode_pass": (_P,) * 12 + (_I,) * 4 + (_P,),
+    # qdiffs, history, weight, out, num_lanes, num_steps, device, stream
+    "aad_lms_lanes": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

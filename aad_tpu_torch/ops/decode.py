@@ -11,9 +11,10 @@ Decode of one block factors into two recurrences over time (design:
 Both are written here as Python loops over time whose body is vectorised over
 every block x channel lane: the straightforward reading of
 ``aad_tpu.ops.decode.compute_qdiffs`` / ``lms_scan``. ``aad_tpu`` computes
-phase A with an associative scan; a loop is the plain version of the same
-function. Bit-exact with the reference decoder (reference:
-src/aad_decoder.c:269-318, 321-475).
+phase A with an associative scan, which is :func:`compute_qdiffs_prefix`
+here, the phase A of the two-phase ``pallas`` engine; the loop
+:func:`compute_qdiffs` is its plain version. Bit-exact with the reference
+decoder (reference: src/aad_decoder.c:269-318, 321-475).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..constants import (
     STEP_INDEX_MAX,
 )
 from . import cseman as cs
-from .transitions import quantized_diff, stepsize_from_index, update_step_index
+from .transitions import quantized_diff, step_index_prefix, stepsize_from_index, update_step_index
 
 
 def compute_qdiffs(codes: torch.Tensor, init_index: torch.Tensor, bits_per_sample: int) -> torch.Tensor:
@@ -40,6 +41,19 @@ def compute_qdiffs(codes: torch.Tensor, init_index: torch.Tensor, bits_per_sampl
         qdiffs.append(quantized_diff(stepsize_from_index(idx), code, bits_per_sample))
         idx = update_step_index(idx, code, bits_per_sample)
     return torch.stack(qdiffs, dim=-1) if qdiffs else codes.to(torch.int32)
+
+
+def compute_qdiffs_prefix(
+    codes: torch.Tensor, init_index: torch.Tensor, bits_per_sample: int, dim: int = -1
+) -> torch.Tensor:
+    """Phase A by the log-depth step-index scan: equal to :func:`compute_qdiffs`.
+
+    Time runs along ``dim`` (``dim=0``: time-major ``(T, L)`` codes give
+    time-major qdiffs, the LMS kernel's input layout). Returns int32 qdiffs
+    of ``codes``' shape.
+    """
+    step = stepsize_from_index(step_index_prefix(codes, init_index, bits_per_sample, dim))
+    return quantized_diff(step, codes, bits_per_sample)
 
 
 def lms_scan(qdiffs: torch.Tensor, history0: torch.Tensor, weight0: torch.Tensor) -> torch.Tensor:

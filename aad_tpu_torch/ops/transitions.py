@@ -4,8 +4,7 @@ The torch counterparts of ``aad_tpu.ops.transitions``: pure functions over a
 leading lane shape ``(...,)``, bit-exact with the reference decode step
 (reference: src/aad_decoder.c:269-318) and encode step
 (src/aad_encoder.c:343-410). The tables live on the device of the tensor
-they are applied to. Not ported: ``step_index_prefix`` (the associative
-scan of the non-default ``pallas`` decode engine).
+they are applied to.
 """
 
 from __future__ import annotations
@@ -151,6 +150,59 @@ def encode_sample(
     state = state._replace(step_index=update_step_index(state.step_index, code, bits_per_sample))
     state, _ = _apply_qdiff(state, qdiff, pred)
     return state, code, qdiff
+
+
+def _clip_between(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """max(lo, min(hi, x)) with tensor bounds (``cs.clip`` takes ints)."""
+    return torch.maximum(lo, torch.minimum(hi, x))
+
+
+def step_index_prefix(codes: torch.Tensor, init_index: torch.Tensor, bits_per_sample: int, dim: int = -1) -> torch.Tensor:
+    """Step index *used by* each decode step, for a whole code sequence.
+
+    ``idx_t = clip(idx_{t-1} + d_t, 0, 4080)`` is a chain of saturating-add
+    maps ``x -> clip(x + a, lo, hi)``, which are closed under composition:
+    ``(a1, l1, h1)`` then ``(a2, l2, h2)`` is ``(a1 + a2, clip(l1 + a2, l2,
+    h2), clip(h1 + a2, l2, h2))``. Composition is associative, so every
+    prefix comes out of a log-depth (Hillis-Steele) scan: ``ceil(log2 T)``
+    rounds over shifted slices of the time axis, as
+    ``aad_tpu.ops.transitions.step_index_prefix`` does with
+    ``lax.associative_scan``.
+
+    Args:
+      codes: int codes with time on axis ``dim`` (``(..., T)`` by default;
+        ``dim=0`` takes the decoder's time-major ``(T, L)`` codes).
+      init_index: the initial Q4 index, ``codes``' shape without ``dim``.
+    Returns:
+      int32, ``codes``' shape: the index consumed by step t (before t's update).
+
+    The scan updates its three int32 state tensors in place, round by round,
+    to hold one copy of each at full width.
+    """
+    dim = dim % codes.dim()
+    T = codes.shape[dim]
+    a = index_table(bits_per_sample, codes.device)[codes.to(torch.int64)]
+    lo = torch.zeros_like(a)
+    hi = torch.full_like(a, STEP_INDEX_MAX)
+    d = 1
+    while d < T:
+        # f = the prefix ending at t - d (earlier), g = the one ending at t (later)
+        fa, flo, fhi = (x.narrow(dim, 0, T - d) for x in (a, lo, hi))
+        ga, glo, ghi = (x.narrow(dim, d, T - d) for x in (a, lo, hi))
+        new_lo = _clip_between(flo + ga, glo, ghi)
+        new_hi = _clip_between(fhi + ga, glo, ghi)
+        new_a = fa + ga
+        ga.copy_(new_a)
+        glo.copy_(new_lo)
+        ghi.copy_(new_hi)
+        del fa, flo, fhi, ga, glo, ghi, new_a, new_lo, new_hi
+        d *= 2
+    init = init_index.to(torch.int32).unsqueeze(dim)
+    # Prefix t applied to init gives the index AFTER step t; step t uses the
+    # index after step t - 1.
+    after = _clip_between(init + a, lo, hi)
+    del a, lo, hi
+    return torch.cat([init.expand_as(after.narrow(dim, 0, 1)), after.narrow(dim, 0, T - 1)], dim=dim)
 
 
 def seed_history(state: CodecState, first_samples: torch.Tensor, valid) -> CodecState:

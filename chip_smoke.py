@@ -41,7 +41,27 @@ order; nothing is caught, so any failure exits non-zero:
    the main path's shapes, the device-resident and transfer-inclusive
    parallel encode, and the sequential 60-second encode; the device time by
    kernel of the resident parallel and the sequential encode under
-   ``torch.profiler``.
+   ``torch.profiler``;
+10. the LMS kernel of the two-phase decode engine against its plain torch
+   version, bit for bit: bps 2/3/4, qdiffs from ``compute_qdiffs_prefix``
+   of random codes (half the lanes at the top step), lane counts that are
+   not multiples of 32, T = 1 and 988, weights and histories over all of
+   int32 (the sums wrap); and ``compute_qdiffs_prefix`` against the loop
+   ``compute_qdiffs`` on the card;
+11. the slice's paths at full width: the benchmark stream and its mid/side
+   variant through ``decode(..., device="cuda", engine="pallas")`` against
+   the fused engine and the CPU path, with launch counts; block- and
+   time-range windows (the last block included) against slices of the full
+   decode; ``decode_batch`` of four geometries against per-stream decodes
+   under both engines; ``StreamingDecoder`` over the benchmark stream in
+   pushes of 1,000,003 bytes; ``StreamingEncoder`` over the 60-second
+   signal in uneven chunks against the sequential ``encode()``; and a
+   4-bit to 2-bit ``transcode``, cuda against cpu;
+12. the slice's times: the LMS kernel and its plain version at 58,066 x 988,
+   phase A (``compute_qdiffs_prefix``) and its peak memory, the resident
+   two-phase decode beside the fused one (in turns), ``decode_batch`` of
+   the pile and the streaming decode and encode in samples/s, and the
+   two-phase decode's device time by kernel under ``torch.profiler``.
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -68,6 +88,8 @@ DECODE_ITERS = 20
 ENCODE_ITERS = 10
 SEQ_SECONDS = 60  # the sequential encode's stream: its first minute
 PREFIX_BLOCKS = 8
+STREAM_PUSH = 1_000_003  # bytes a StreamingDecoder push
+STREAM_CHUNKS = (123_457, 50_000, 991, 200_003)  # samples/ch a StreamingEncoder push, in turn
 
 # The least time the card could take (H100 SXM, NVIDIA's data sheet and the
 # Hopper white paper): HBM at 3.35 TB/s, and int32 issue at 64 lanes per SM
@@ -78,6 +100,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # aad_decode_lanes (csrc/decode.cu), and encode_step plus its pass loop
 # (csrc/encode.cu; the quotient search has bps - 1 steps).
 DECODE_OPS_PER_SAMPLE = 40
+# aad_lms_lanes (csrc/lms.cu): 4-tap sum (4 mul, 4 add), shift, add, clip
+# (2), and 4 weight updates (mul, add, shift, add): 28 a sample.
+LMS_OPS_PER_SAMPLE = 28
 ENCODE_OPS_PER_STEP = {2: 52, 3: 56, 4: 60}
 PROBE_OPS_PER_SLOT = 5
 
@@ -102,7 +127,7 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_stream(num_samples, nch=2, bps=4, ms=False, seed=SEED):
+def bench_stream(num_samples, nch=2, bps=4, ms=False, seed=SEED, max_block_size=1024):
     """A valid .aad stream with random codes and states, as bench.py builds its
     stream (bench.py::build_synthetic_stream: same draws from the same seed),
     built with the port's own framing. Returns (bytes, header)."""
@@ -110,7 +135,7 @@ def bench_stream(num_samples, nch=2, bps=4, ms=False, seed=SEED):
     from aad_tpu_torch.format.framing import BlockStates, assemble_stream, build_block_headers
     from aad_tpu_torch.format.geometry import num_blocks_for
 
-    geo = at.compute_block_geometry(1024, nch, bps)
+    geo = at.compute_block_geometry(max_block_size, nch, bps)
     header = at.HeaderInfo(
         num_channels=nch, num_samples=num_samples, sampling_rate=RATE,
         bits_per_sample=bps, block_size=geo.block_size,
@@ -359,7 +384,7 @@ def encode_main_path(cuda) -> dict:
     check(np.array_equal(dec_cuda, dec_cpu) and snr_cuda == snr_cpu, "round trip: cuda != cpu")
     print(f"[encode-main] round trip of the parallel stream: SNR {snr_cuda:.4f} dB (cuda encode, cuda decode), "
           f"{snr_cpu:.4f} dB (cpu encode, cpu decode)")
-    return dict(cfg=cfg, pcm=pcm, seq_pcm=seq_pcm, par_launches=par_launches, seq_launches=seq_launches)
+    return dict(cfg=cfg, pcm=pcm, seq_pcm=seq_pcm, seq=seq, par_launches=par_launches, seq_launches=seq_launches)
 
 
 def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
@@ -456,6 +481,279 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     ]
 
 
+def reset_all_launches() -> None:
+    """Zero every kernel's launch count; the probe's cached result stays, as
+    it does within one process."""
+    from aad_tpu_torch.ops import encode_pass as ep, fused_decode as fd, fused_encode as fe, lms
+
+    for mod in (fd, lms, fe, ep):
+        mod.launches.update(dict.fromkeys(mod.launches, 0))
+
+
+def all_launches() -> dict:
+    from aad_tpu_torch.ops import encode_pass as ep, fused_decode as fd, fused_encode as fe, lms
+
+    return {**fd.launches, **lms.launches, **fe.launches, **ep.launches}
+
+
+def lms_kernel_checks(cuda) -> int:
+    """Phase 10: aad_lms_lanes against its plain version, bit for bit; and
+    phase A by the prefix scan against the loop, on the card."""
+    import torch
+    from aad_tpu_torch.ops import lms
+    from aad_tpu_torch.ops.decode import compute_qdiffs, compute_qdiffs_prefix
+
+    rng = np.random.default_rng(SEED + 3)
+    worst = 0
+    for bps in (2, 3, 4):
+        for L, T in ((4099, 988), (1061, 1), (333, 988)):
+            codes = torch.from_numpy(rng.integers(0, 2**bps, (T, L), dtype=np.uint8)).to(cuda)
+            init = rng.integers(0, 4081, L).astype(np.int32)
+            init[: L // 2] = 4080  # the top step: |qdiff| up to about 61k
+            init = torch.from_numpy(init).to(cuda)
+            qdiffs = compute_qdiffs_prefix(codes, init, bps, dim=0)
+            loop = compute_qdiffs(codes.t(), init, bps).t()
+            check(torch.equal(qdiffs, loop), f"compute_qdiffs_prefix != compute_qdiffs on the card at bps={bps} L={L} T={T}")
+            history = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
+            history[::2] = rng.integers(-32768, 32768, history[::2].shape)
+            weight = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
+            weight[1::2] = rng.integers(-20000, 20000, weight[1::2].shape)
+            weight[::4] = rng.integers(-20000, 20000, weight[::4].shape)  # as the benchmark draws them
+            wraps = int((np.abs((history.astype(np.int64) * weight).sum(-1) + 2**14) >= 2**31).sum())
+            args = (qdiffs.cpu(), torch.from_numpy(history), torch.from_numpy(weight))
+            want = lms.lms_lanes_reference(*args)
+            got = lms.lms_lanes(*(a.to(cuda) for a in args))
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(err == 0, f"aad_lms_lanes != plain at bps={bps} L={L} T={T}: max |err| {err}")
+            worst = max(worst, err)
+            print(f"[kernel-vs-plain] aad_lms_lanes bps={bps} lanes={L} steps={T}, max |qdiff| "
+                  f"{int(qdiffs.abs().max())}, {wraps} lanes whose first 4-tap sum wraps: bit-exact; "
+                  f"compute_qdiffs_prefix == compute_qdiffs on the card")
+    return worst
+
+
+def slice_main_path(cuda, bench) -> dict:
+    """Phase 11: the two-phase engine, range decodes, batch, streaming and
+    transcode at full width, each against its one-shot counterpart."""
+    import torch
+    import aad_tpu_torch as at
+    from aad_tpu_torch.ops import fused_decode as fd, lms
+
+    data, h, ref, ms_data, ms_ref = bench["data"], bench["header"], bench["ref"], bench["ms_data"], bench["ms_ref"]
+    counts = {}
+
+    def drive(label, fn):
+        reset_all_launches()
+        out = fn()
+        counts[label] = {k: v for k, v in all_launches().items() if v}
+        return out
+
+    # (a) the benchmark stream and its mid/side variant, both engines
+    t0 = time.perf_counter()
+    _, got = drive("decode pallas", lambda: at.decode(data, device="cuda", engine="pallas"))
+    first_s = time.perf_counter() - t0
+    check(counts["decode pallas"] == {lms.LMS_KERNEL: 1}, f"pallas decode launches {counts['decode pallas']}")
+    _, fused = drive("decode fused", lambda: at.decode(data, device="cuda", engine="fused"))
+    check(counts["decode fused"] == {fd.DECODE_KERNEL: 1}, f"fused decode launches {counts['decode fused']}")
+    check(np.array_equal(got, fused) and np.array_equal(got, ref), "pallas decode != fused / cpu")
+    print(f"[slice] decode(engine='pallas') of the bench stream: == engine='fused' on the card == cpu, bit-exact; "
+          f"launches pallas {counts['decode pallas']}, fused {counts['decode fused']}; first call {first_s:.3f} s")
+    del fused
+    _, got = drive("decode pallas mid/side", lambda: at.decode(ms_data, device="cuda", engine="pallas"))
+    _, fused = at.decode(ms_data, device="cuda", engine="fused")
+    check(np.array_equal(got, fused) and np.array_equal(got, ms_ref), "pallas mid/side != fused / cpu")
+    print("[slice] mid/side variant, engine='pallas': == fused on the card == cpu, bit-exact")
+    del got, fused
+
+    # (b) random access, against slices of the full decode
+    nspb = h.num_samples_per_block
+    nblocks = -(-h.num_samples // nspb)
+    seconds = h.num_samples / RATE
+    payload = np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:]
+    for engine in ("pallas", "fused"):
+        dec = at.Decoder.from_header(h, device="cuda", engine=engine)
+        for b0, n in ((0, 5), (nblocks // 2 + 1, 37), (nblocks - 3, 10), (nblocks - 1, 1)):
+            got = drive(f"block range {engine}", lambda: dec.decode_block_range(payload, b0, n))
+            check(got.device == cuda and got.dtype == torch.int32, "block range output")
+            want = ref[:, b0 * nspb : min(b0 + n, nblocks) * nspb]
+            check(np.array_equal(got.cpu().numpy(), want), f"decode_block_range({b0}, {n}) {engine} != slice")
+        for s0, s1 in ((seconds / 2 + 0.3456, seconds / 2 + 1.5), (0.0, 0.01), (seconds - 0.01, seconds + 100)):
+            got = drive(f"time range {engine}", lambda: dec.decode_time_range(payload, s0, s1))
+            want = ref[:, int(s0 * RATE) : min(h.num_samples, int(s1 * RATE))]
+            check(np.array_equal(got.cpu().numpy(), want), f"decode_time_range({s0}, {s1}) {engine} != slice")
+    print(f"[slice] decode_block_range (first, inner, last 3 and the last block alone) and decode_time_range "
+          f"(inner, head, past the end) under both engines: == slices of the full decode; launches "
+          f"{counts['block range pallas']} and {counts['block range fused']} a range")
+
+    # (c) a pile of four geometries through decode_batch
+    pile = [data, bench["mono"],
+            bench_stream(RATE * 60, ms=True, seed=SEED + 3)[0],
+            bench_stream(RATE * 30, bps=2, seed=SEED + 4, max_block_size=256)[0]]
+    singles = [ref] + [at.decode(s, device="cuda")[1] for s in pile[1:]]
+    for engine in ("pallas", "fused"):
+        out = drive(f"batch {engine}", lambda: at.decode_batch(pile, device="cuda", engine=engine))
+        for (bh, got), want in zip(out, singles):
+            check(got.dtype == np.int16 and np.array_equal(got, want), f"decode_batch {engine} != decode")
+    kernel = {"pallas": lms.LMS_KERNEL, "fused": fd.DECODE_KERNEL}
+    for engine in kernel:
+        check(counts[f"batch {engine}"] == {kernel[engine]: 4}, f"batch {engine} launches {counts[f'batch {engine}']}")
+    print(f"[slice] decode_batch of 4 geometries (bench stream, mono 3-bit, mid/side, 2-bit 256-byte blocks), "
+          f"{sum(p.size for _, p in out)} samples: == per-stream decode under both engines; launches "
+          f"{counts['batch pallas']} / {counts['batch fused']}")
+    del out
+
+    # (d) streaming decode of the bench stream in uneven pushes
+    def stream_decode(engine):
+        sd = at.StreamingDecoder(device="cuda", engine=engine)
+        return np.concatenate([sd.push(data[i : i + STREAM_PUSH]) for i in range(0, len(data), STREAM_PUSH)], axis=1)
+
+    got = drive("streaming decode pallas", lambda: stream_decode("pallas"))
+    check(np.array_equal(got, ref), "StreamingDecoder != one-shot decode")
+    pushes = -(-len(data) // STREAM_PUSH)
+    print(f"[slice] StreamingDecoder(engine='pallas'), {pushes} pushes of {STREAM_PUSH} bytes: == one-shot decode; "
+          f"launches {counts['streaming decode pallas']}")
+    del got
+
+    # (e) streaming encode of the 60-second signal in uneven chunks
+    enc_main = bench["encode"]
+    cfg, seq_pcm = enc_main["cfg"], enc_main["seq_pcm"]
+
+    def stream_encode():
+        se = at.StreamingEncoder(cfg, device="cuda", total_samples=seq_pcm.shape[1])
+        parts, off, i = [se.header()], 0, 0
+        while off < seq_pcm.shape[1]:
+            n = STREAM_CHUNKS[i % len(STREAM_CHUNKS)]
+            parts.append(se.push(seq_pcm[:, off : off + n]))
+            off, i = off + n, i + 1
+        return b"".join(parts) + se.finish(), i
+
+    (streamed, chunks) = drive("streaming encode", stream_encode)
+    check(streamed == enc_main["seq"], "StreamingEncoder != sequential encode()")
+    print(f"[slice] StreamingEncoder over the {SEQ_SECONDS}-s signal in {chunks} uneven chunks: == sequential "
+          f"encode(device='cuda') bytes; launches {counts['streaming encode']}")
+
+    # (f) transcode 4-bit -> 2-bit of a short stream
+    short = at.encode(bench_pcm(4 * nspb - 100, seed=SEED + 5), cfg, device="cuda")
+    got = drive("transcode", lambda: at.transcode(short, device="cuda", engine="pallas", bits_per_sample=2))
+    check(got == at.transcode(short, device="cpu", bits_per_sample=2), "transcode: cuda != cpu")
+    check(at.decode_header(got).bits_per_sample == 2, "transcode header")
+    print(f"[slice] transcode 4-bit -> 2-bit, {4 * nspb - 100} samples/ch: cuda == cpu, bit-exact; "
+          f"launches {counts['transcode']}")
+    return dict(counts=counts, pile=pile)
+
+
+def slice_times(cuda, card, bench, slice_run, lms_err) -> dict:
+    """Phase 12: the slice's times; the LMS kernel's record."""
+    import torch
+    import aad_tpu_torch as at
+    from aad_tpu_torch.format.framing import block_codes, pad_to_blocks, parse_block_headers
+    from aad_tpu_torch.ops import lms
+    from aad_tpu_torch.ops.decode import compute_qdiffs, compute_qdiffs_prefix
+
+    data, h = bench["data"], bench["header"]
+    geo = at.geometry_from_header(h.num_channels, h.bits_per_sample, h.block_size)
+    nblocks = -(-h.num_samples // geo.num_samples_per_block)
+    payload = torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()).to(cuda)
+    blocks = pad_to_blocks(payload, nblocks, geo)
+    states = parse_block_headers(blocks, geo)
+    codes = block_codes(blocks, geo)
+    B, C, T = codes.shape
+    L = B * C
+    codes_tm = codes.permute(2, 1, 0).reshape(T, L).contiguous()
+    init = states.step_index.t().reshape(L).contiguous()
+    history = states.history.transpose(0, 1).reshape(L, 4).contiguous()
+    weight = states.weight.transpose(0, 1).reshape(L, 4).contiguous()
+    del blocks, codes
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    qdiffs = compute_qdiffs_prefix(codes_tm, init, 4, dim=0)
+    torch.cuda.synchronize()
+    phase_a_peak = torch.cuda.max_memory_allocated() - base
+    check(torch.equal(qdiffs, compute_qdiffs(codes_tm.t(), init, 4).t()), "phase A prefix != loop at full width")
+    phase_a_ms = cuda_ms(lambda: compute_qdiffs_prefix(codes_tm, init, 4, dim=0), DECODE_ITERS)
+    phase_a_loop_ms = cuda_ms(lambda: compute_qdiffs(codes_tm.t(), init, 4), 1, warmup=0)
+
+    got = lms.lms_lanes(qdiffs, history, weight)
+    want = lms.lms_lanes_reference(qdiffs, history, weight)
+    full_err = max_err(got, want)
+    check(full_err == 0, f"aad_lms_lanes != plain on the card at the main-path shape: {full_err}")
+    del got, want
+    kernel_ms = cuda_ms(lambda: lms.lms_lanes(qdiffs, history, weight), KERNEL_ITERS)
+    plain_ms = cuda_ms(lambda: lms.lms_lanes_reference(qdiffs, history, weight), 3, warmup=1)
+    kernel_ms_2 = cuda_ms(lambda: lms.lms_lanes(qdiffs, history, weight), KERNEL_ITERS)
+    lms_bound = bound(L * T * 4 + L * 32 + L * (T + 4) * 2, L * T * LMS_OPS_PER_SAMPLE)
+    del qdiffs
+
+    total = h.num_samples * h.num_channels
+    fused = at.Decoder.from_header(h, device="cuda", engine="fused")
+    pallas = at.Decoder.from_header(h, device="cuda", engine="pallas")
+    turns = [("fused", fused), ("pallas", pallas), ("pallas", pallas), ("fused", fused)]
+    resident = {"fused": [], "pallas": []}
+    for name, dec in turns:
+        resident[name].append(cuda_ms(lambda: dec.decode_payload_ondevice(payload), DECODE_ITERS))
+
+    def host_s(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters
+
+    pile = slice_run["pile"]
+    pile_samples = sum(at.decode_header(s).num_samples * at.decode_header(s).num_channels for s in pile)
+    batch_s = {e: host_s(lambda: at.decode_batch(pile, device="cuda", engine=e), 3) for e in ("pallas", "fused")}
+
+    def stream_decode():
+        sd = at.StreamingDecoder(device="cuda", engine="pallas")
+        for i in range(0, len(data), STREAM_PUSH):
+            sd.push(data[i : i + STREAM_PUSH])
+
+    stream_dec_s = host_s(stream_decode, 2)
+    enc_main = bench["encode"]
+    cfg, seq_pcm = enc_main["cfg"], enc_main["seq_pcm"]
+
+    def stream_encode():
+        se = at.StreamingEncoder(cfg, device="cuda")
+        off, i = 0, 0
+        while off < seq_pcm.shape[1]:
+            n = STREAM_CHUNKS[i % len(STREAM_CHUNKS)]
+            se.push(seq_pcm[:, off : off + n])
+            off, i = off + n, i + 1
+        se.finish()
+
+    stream_enc_s = host_s(stream_encode, 1)
+    profile("device-resident two-phase (pallas) decode, bench stream",
+            lambda: pallas.decode_payload_ondevice(payload), 10)
+
+    print(f"[time] card: {card}")
+    print(f"[time] aad_lms_lanes {L} lanes x {T} steps: kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms (two windows), "
+          f"plain torch on the card {plain_ms:.4f} ms, bound {lms_bound[0]:.4f} ms ({lms_bound[1]}) ({card})")
+    print(f"[time] phase A compute_qdiffs_prefix {T} x {L}: {phase_a_ms:.4f} ms, peak {phase_a_peak / 2**20:.1f} MiB "
+          f"above its inputs; the loop compute_qdiffs on the card {phase_a_loop_ms:.4f} ms ({card})")
+    for name in ("fused", "pallas"):
+        ms = resident[name]
+        print(f"[time] device-resident decode_payload_ondevice engine={name}: "
+              + " / ".join(f"{m:.4f} ms" for m in ms)
+              + f" -> {total / (min(ms) / 1e3):.6e} samples/s at best ({card})")
+    for e, s in batch_s.items():
+        print(f"[time] decode_batch of the pile, engine={e}: {s * 1e3:.4f} ms, {pile_samples / s:.6e} samples/s ({card})")
+    print(f"[time] StreamingDecoder(engine='pallas'), bench stream in {STREAM_PUSH}-byte pushes: "
+          f"{stream_dec_s * 1e3:.4f} ms, {total / stream_dec_s:.6e} samples/s ({card})")
+    print(f"[time] StreamingEncoder, {SEQ_SECONDS} s stereo in uneven chunks: {stream_enc_s * 1e3:.4f} ms, "
+          f"{seq_pcm.size / stream_enc_s:.6e} samples/s ({card})")
+
+    launches = sum(c.get(lms.LMS_KERNEL, 0) for c in slice_run["counts"].values())
+    return {"name": lms.LMS_KERNEL, "route": "cuda", "source": "aad_tpu_torch/csrc/lms.cu",
+            "replaces": "aad_tpu/ops/pallas_lms.py:113", "launches": launches,
+            "max_abs_err": max(lms_err, full_err), "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": lms_bound[0], "bound_by": lms_bound[1], "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -532,6 +830,7 @@ def main() -> int:
           "block heads != header history")
     _, ref = at.decode(data, device="cpu")
     check(np.array_equal(pcm, ref), "cuda decode != cpu decode")
+    bench = dict(data=data, header=h, ref=ref)
     print(f"[main] stereo 4-bit {num_samples} samples/ch, {nblocks} blocks, "
           f"{2 * nblocks} lanes: cuda == cpu, bit-exact; launches {launches}; "
           f"first call {main_s:.3f} s")
@@ -541,6 +840,7 @@ def main() -> int:
     _, got = at.decode(ms_data, device="cuda")
     _, ref = at.decode(ms_data, device="cpu")
     check(np.array_equal(got, ref), "mid/side: cuda != cpu")
+    bench.update(ms_data=ms_data, ms_ref=ref)
     print("[main] mid/side variant: cuda == cpu, bit-exact")
 
     mono_n = 40 * at.compute_block_geometry(1024, 1, 3).num_samples_per_block - 123  # ragged tail
@@ -622,6 +922,12 @@ def main() -> int:
     stream_err, pass_err = encode_kernel_checks(cuda)
     encoded = encode_main_path(cuda)
     records += encode_times(cuda, card, encoded, stream_err, pass_err)
+
+    # 10-12. the two-phase decode engine, random access, batch, streaming, transcode
+    bench.update(mono=mono, encode=encoded)
+    lms_err = lms_kernel_checks(cuda)
+    slice_run = slice_main_path(cuda, bench)
+    records.append(slice_times(cuda, card, bench, slice_run, lms_err))
 
     print(json.dumps({"kernels": records}))
     print(smi())

@@ -190,11 +190,16 @@ def test_header_validation_matches(field, value, error):
 
 
 def test_import_pulls_in_no_jax():
-    """The port imports torch and numpy only: never jax, never aad_tpu."""
+    """The port imports torch and numpy only: never jax, never aad_tpu. Every
+    module of the package is imported, found by walking it."""
     code = (
-        "import sys, aad_tpu_torch, aad_tpu_torch.ops.fused_decode;"
+        "import importlib, pkgutil, sys, aad_tpu_torch;"
+        "mods = [m.name for m in pkgutil.walk_packages(aad_tpu_torch.__path__, 'aad_tpu_torch.')];"
+        "[importlib.import_module(m) for m in mods];"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aad_tpu'));"
-        "print(bad); sys.exit(1 if bad else 0)"
+        "need = {'aad_tpu_torch.ops.lms', 'aad_tpu_torch.ops.fused_encode', 'aad_tpu_torch.codec.streaming',"
+        " 'aad_tpu_torch.io', 'aad_tpu_torch.format.wav'};"
+        "print(len(mods), bad, sorted(need - set(mods))); sys.exit(1 if bad or need - set(mods) else 0)"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(

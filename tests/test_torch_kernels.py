@@ -17,7 +17,8 @@ import torch
 import aad_tpu_torch
 from aad_tpu_torch.format.framing import BlockStates, assemble_stream, build_block_headers
 from aad_tpu_torch.format.geometry import compute_block_geometry, num_blocks_for
-from aad_tpu_torch.ops import encode_pass, fused_decode, fused_encode
+from aad_tpu_torch.ops import encode_pass, fused_decode, fused_encode, lms
+from aad_tpu_torch.ops.decode import compute_qdiffs_prefix
 from aad_tpu_torch.ops.transitions import CodecState
 from aad_tpu_torch.tables import STEPSIZE_TABLE
 
@@ -61,8 +62,8 @@ def test_decode_lanes_kernel_matches_plain(cuda, bps, L, T):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("nch,ms,bps", [(2, False, 4), (2, True, 4), (1, False, 3)])
-def test_cuda_decode_matches_cpu(cuda, nch, ms, bps):
+def _stream(nch, ms, bps):
+    """A 40-block stream with a ragged tail, as the benchmark draws its stream."""
     geo = compute_block_geometry(1024, nch, bps)
     n = 40 * geo.num_samples_per_block - 123
     nb = num_blocks_for(n, geo.num_samples_per_block)
@@ -79,13 +80,57 @@ def test_cuda_decode_matches_cpu(cuda, nch, ms, bps):
         block_size=geo.block_size, num_samples_per_block=geo.num_samples_per_block,
         ch_process_method=int(ms),
     )
-    data = aad_tpu_torch.encode_header(header) + assemble_stream(hdr, codes, geo, n).numpy().tobytes()
+    return aad_tpu_torch.encode_header(header) + assemble_stream(hdr, codes, geo, n).numpy().tobytes()
+
+
+@pytest.mark.parametrize("nch,ms,bps", [(2, False, 4), (2, True, 4), (1, False, 3)])
+def test_cuda_decode_matches_cpu(cuda, nch, ms, bps):
+    data = _stream(nch, ms, bps)
     _, want = aad_tpu_torch.decode(data, device="cpu")
     _, got = aad_tpu_torch.decode(data, device="cuda")
     np.testing.assert_array_equal(got, want)
     _, want = aad_tpu_torch.decode(data[:-1500], device="cpu", strict=False)
     _, got = aad_tpu_torch.decode(data[:-1500], device="cuda", strict=False)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bps", [2, 3, 4])
+@pytest.mark.parametrize("L,T", [(1000, 300), (257, 988), (33, 1)])
+def test_lms_lanes_kernel_matches_plain(cuda, bps, L, T):
+    """qdiffs from the prefix scan (half the lanes at the top step), weights
+    over all of int32 on a quarter of the lanes and int32-wide histories on
+    half: the sums wrap."""
+    rng = np.random.default_rng(bps * 5 + L + T)
+    codes = torch.from_numpy(rng.integers(0, 2**bps, (T, L), dtype=np.uint8))
+    init = torch.from_numpy(np.where(np.arange(L) < L // 2, 4080, rng.integers(0, 4081, L)).astype(np.int32))
+    qdiffs = compute_qdiffs_prefix(codes, init, bps, dim=0)
+    history = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
+    history[::2] = rng.integers(-32768, 32768, history[::2].shape)
+    weight = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
+    weight[1::2] = rng.integers(-20000, 20000, weight[1::2].shape)
+    weight[::4] = rng.integers(-20000, 20000, weight[::4].shape)  # as the benchmark draws them
+    args = (qdiffs, torch.from_numpy(history), torch.from_numpy(weight))
+    want = lms.lms_lanes_reference(*args)
+    before = lms.launches[lms.LMS_KERNEL]
+    got = lms.lms_lanes(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert lms.launches[lms.LMS_KERNEL] == before + 1
+    assert got.dtype == torch.int16 and got.shape == (L, T + 4)
+    assert torch.equal(got.cpu(), want)
+    # phase A on the card equals phase A on the CPU
+    assert torch.equal(compute_qdiffs_prefix(codes.to(cuda), init.to(cuda), bps, dim=0).cpu(), qdiffs)
+
+
+@pytest.mark.parametrize("nch,ms,bps", [(2, False, 4), (2, True, 4), (1, False, 3)])
+def test_cuda_pallas_decode_matches_cpu(cuda, nch, ms, bps):
+    """engine="pallas": one aad_lms_lanes launch and no aad_decode_lanes launch."""
+    data = _stream(nch, ms, bps)
+    _, want = aad_tpu_torch.decode(data, device="cpu")
+    before = dict(lms.launches), dict(fused_decode.launches)
+    _, got = aad_tpu_torch.decode(data, device="cuda", engine="pallas")
+    np.testing.assert_array_equal(got, want)
+    assert lms.launches[lms.LMS_KERNEL] == before[0][lms.LMS_KERNEL] + 1
+    assert fused_decode.launches[fused_decode.DECODE_KERNEL] == before[1][fused_decode.DECODE_KERNEL]
 
 
 def _same(got, want) -> bool:
