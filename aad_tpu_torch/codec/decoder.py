@@ -4,20 +4,22 @@ The pipeline (reference behaviour: src/aad_decoder.c:478-538):
 
     bytes --host--> file header + geometry
           --H2D---> payload as uint8
-          --device: torch ops--> block split, header parse, code unpack,
-                                 codes reordered to (T, C*B) time-major lanes
+          --device: torch ops--> block split, header parse, code unpack
+                                 to (B, C, T)
           --device: kernel-----> (C*B, nspb) int16 rows
           --device: torch ops--> mid/side combine, (C, N) view
 
 Two engines give the rows, with ``aad_tpu``'s names, so that code written
 against ``aad_tpu`` selects the same algorithm:
 
-* ``"fused"`` (and ``"auto"``): one kernel does the whole recurrence
-  (``ops.fused_decode``, ``csrc/decode.cu``);
+* ``"fused"`` (and ``"auto"``): one kernel does the whole recurrence,
+  reading the unpacked (B, C, T) codes as they are (``ops.fused_decode``,
+  ``csrc/decode.cu``);
 * ``"pallas"``: the two-phase engine, phase A (step indices, step sizes and
   quantised differences) as a log-depth scan of torch ops
-  (``ops.decode.compute_qdiffs_prefix``), then phase B, the LMS recurrence,
-  as a kernel (``ops.lms``, ``csrc/lms.cu``).
+  (``ops.decode.compute_qdiffs_prefix``) over the codes reordered to
+  (T, C*B) time-major lanes, then phase B, the LMS recurrence, as a kernel
+  (``ops.lms``, ``csrc/lms.cu``).
 
 Every block x channel lane decodes independently (the block header carries
 the full state), so the whole file is one kernel launch. Lanes are in
@@ -102,18 +104,20 @@ def _decode_lanes_pcm(
     by the resolved ``engine`` ("fused" or "pallas")."""
     B, C, T = codes.shape
     # channel-major lanes: lane c * B + b is channel c of block b
-    codes_tm = codes.permute(2, 1, 0).reshape(T, C * B).contiguous()
     step_index = states.step_index.t().reshape(C * B).contiguous()
     history = states.history.transpose(0, 1).reshape(C * B, 4).contiguous()
     weight = states.weight.transpose(0, 1).reshape(C * B, 4).contiguous()
     bps = header.bits_per_sample
     if engine == "pallas":
-        # phase A sees the parse clamp, as aad_tpu/ops/decode.py:133 applies it
+        # phase A runs along time, so it takes the codes time-major; it sees
+        # the parse clamp, as aad_tpu/ops/decode.py:133 applies it
+        codes_tm = codes.permute(2, 1, 0).reshape(T, C * B).contiguous()
         qdiffs = compute_qdiffs_prefix(codes_tm, cs.clip(step_index, 0, STEP_INDEX_MAX), bps, dim=0)
         del codes_tm
         rows = lms_lanes(qdiffs, history, weight)
     else:
-        rows = decode_lanes(codes_tm, step_index, history, weight, bps)  # (C * B, nspb)
+        # the kernel reads the (B, C, T) codes as they are
+        rows = decode_lanes(codes.contiguous(), step_index, history, weight, bps)  # (C * B, nspb)
     if header.ch_process_method == CH_PROCESS_MS:
         mid = rows[:B].to(torch.int32)
         side = rows[B:].to(torch.int32)

@@ -47,7 +47,6 @@
 // the launch.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -358,17 +357,6 @@ __global__ void __launch_bounds__(kEncodeThreads)
   sse_out[lane] = sse;
 }
 
-// Calls fn(std::integral_constant<int, BPS>) for bits_per_sample in {2, 3, 4}.
-template <typename Fn>
-cudaError_t dispatch_bps(int bits_per_sample, Fn fn) {
-  switch (bits_per_sample) {
-    case 2: fn(std::integral_constant<int, 2>{}); break;
-    case 3: fn(std::integral_constant<int, 3>{}); break;
-    case 4: fn(std::integral_constant<int, 4>{}); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
 
 }  // namespace aad
 
@@ -394,6 +382,7 @@ int aad_encode_stream(const void* samples, const void* prev0, const void* valid,
         static_cast<uint8_t*>(codes), static_cast<int32_t*>(headers),
         static_cast<int32_t*>(states), num_blocks, num_lanes, nspb, num_trials, warm_on_prev,
         blocks_before);
+    return cudaGetLastError();
   }));
 }
 
@@ -416,6 +405,7 @@ int aad_encode_pass(const void* samples, const void* step_index, const void* his
         static_cast<int32_t*>(step_index_out), static_cast<int32_t*>(history_out),
         static_cast<int32_t*>(weight_out), static_cast<long long*>(sse_out), num_lanes,
         num_codes);
+    return cudaGetLastError();
   }));
 }
 

@@ -16,31 +16,37 @@
 // reaches about 2^31 at the top step, and the 4-tap sum wraps once the
 // weights have grown.
 //
-// What bounds it on an H100: the bytes, 4 in (int32 qdiff) and 2 out
-// (int16 sample) per sample, against about 28 integer ops per sample
-// (LMS_OPS_PER_SAMPLE in chip_smoke.py); both bounds are near 0.1 ms at the
-// benchmark stream's 58,066 lanes x 988 steps. Each lane is one dependent
-// chain, so with about 14 resident warps per SM the chain's latency may keep
-// it above either. The design: one thread per lane, the whole state (4
-// history, 4 weights) in registers, qdiffs read time-major so that a warp
-// reads 128 contiguous bytes at every step, and the output written as the
-// int16 rows of aad_decode_lanes, (L, T + 4) with the block's four header
-// samples (history reversed) first, so the decoder's row handling serves
-// both engines.
+// What bounds it on an H100: the bytes, 4 in (int32 qdiff) and 2 out (int16
+// sample) a sample, 0.103 ms at the benchmark stream's 58,066 lanes x 988
+// steps; its compiled step loop issues 24.1 instructions a sample
+// (chip_smoke.py counts them from the SASS), 0.041 ms of issue. Measured
+// there (H100 80GB HBM3, 700 W; PERF.md section 6), the first
+// design, each thread storing its samples straight into its own row from
+// 256-thread CTAs, took 1.21 ms, bound by the output pattern it shares with
+// aad_decode_lanes: warp stores to 32 rows 1,984 bytes apart, 32 partial
+// sectors for 64 bytes. 64-lane CTAs alone gave 1.14 ms, the staged rows
+// 0.35 ms (30% of the bound). The design: one thread a lane with the whole
+// state (4 history, 4 weights) in registers; qdiffs read time-major, 128
+// contiguous bytes a warp a step, as phase A writes them; the output rows
+// staged through shared memory and written as whole row segments by 64-lane
+// CTAs (codec.cuh::run_rows), the rows of aad_decode_lanes, (L, T + 4) with
+// the block's four header samples (history reversed) first, so the
+// decoder's row handling serves both engines.
 //
 // Not carried over from the TPU kernel:
 // - the (8, 128) lane tiles and the padding of lanes to 1024 and of T to
-//   256: a thread is a lane, and the grid masks the ragged last block;
+//   256: a thread is a lane, and the ragged last CTA masks its lanes;
 // - the T_CHUNK grid axis with the state in VMEM scratch across chunks: a
 //   thread walks all of T in one loop, the state in its registers;
 // - the int32 output: samples are int16-valued by format and the rows are
 //   written as int16 with their head, which the TPU path concatenated and
 //   cast in XLA afterwards.
 //
-// The entry point has a plain C interface (bound with ctypes), launches on
-// the stream it is given, allocates nothing and returns the cudaError_t of
+// The entry points have a plain C interface (bound with ctypes), launch on
+// the stream they are given, allocate nothing and return the cudaError_t of
 // the launch.
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -50,46 +56,31 @@
 
 namespace aad {
 
-constexpr int kLmsThreads = 256;
+struct LmsLane {
+  Lms lms;
+  const int32_t* q;  // this lane's column of the (T, L) qdiffs
+  int num_lanes;
 
-__global__ void __launch_bounds__(kLmsThreads)
+  __device__ __forceinline__ void head(uint32_t* row) const { write_head(row, lms); }
+  __device__ __forceinline__ void fetch(int) const {}
+  __device__ __forceinline__ void wait() const {}
+  __device__ __forceinline__ int32_t step(int, int t, int) {
+    return lms.step(__ldg(q + static_cast<int64_t>(t) * num_lanes));
+  }
+};
+
+__global__ void __launch_bounds__(kLanesPerBlock)
     lms_lanes_kernel(const int32_t* __restrict__ qdiffs,   // (T, L) time-major
                      const int32_t* __restrict__ history,  // (L, 4), newest first
                      const int32_t* __restrict__ weight,   // (L, 4)
                      int16_t* __restrict__ out,            // (L, T + 4)
                      int num_lanes, int num_steps) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= num_lanes) return;
-
-  int32_t h0 = history[4 * lane + 0], h1 = history[4 * lane + 1];
-  int32_t h2 = history[4 * lane + 2], h3 = history[4 * lane + 3];
-  int32_t w0 = weight[4 * lane + 0], w1 = weight[4 * lane + 1];
-  int32_t w2 = weight[4 * lane + 2], w3 = weight[4 * lane + 3];
-
-  int16_t* o = out + static_cast<int64_t>(lane) * (num_steps + kFilterOrder);
-  o[0] = static_cast<int16_t>(h3);
-  o[1] = static_cast<int16_t>(h2);
-  o[2] = static_cast<int16_t>(h1);
-  o[3] = static_cast<int16_t>(h0);
-
-  const int32_t* q = qdiffs + lane;
-  for (int t = 0; t < num_steps; ++t) {
-    const int32_t qd = q[static_cast<int64_t>(t) * num_lanes];
-    int32_t acc = wadd(kFixedHalf, wmul(h0, w0));
-    acc = wadd(acc, wmul(h1, w1));
-    acc = wadd(acc, wmul(h2, w2));
-    acc = wadd(acc, wmul(h3, w3));
-    const int32_t s = clip16(wadd(qd, asr(acc, kFixedDigits)));
-    w0 = wadd(w0, asr(wadd(wmul(qd, h0), kFixedHalf), kWeightShift));
-    w1 = wadd(w1, asr(wadd(wmul(qd, h1), kFixedHalf), kWeightShift));
-    w2 = wadd(w2, asr(wadd(wmul(qd, h2), kFixedHalf), kWeightShift));
-    w3 = wadd(w3, asr(wadd(wmul(qd, h3), kFixedHalf), kWeightShift));
-    h3 = h2;
-    h2 = h1;
-    h1 = h0;
-    h0 = s;
-    o[kFilterOrder + t] = static_cast<int16_t>(s);
-  }
+  __shared__ OutTile s_out[2];
+  const int lane0 = blockIdx.x * kLanesPerBlock;
+  const int lane = lane0 + static_cast<int>(threadIdx.x);
+  const bool active = lane < num_lanes;
+  LmsLane l{load_lms(history, weight, lane, active), qdiffs + lane, num_lanes};
+  run_rows(l, s_out, out, lane0, num_lanes, num_steps);
 }
 
 }  // namespace aad
@@ -100,8 +91,11 @@ int aad_lms_lanes(const void* qdiffs, const void* history, const void* weight, v
                   int num_lanes, int num_steps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((num_lanes + aad::kLmsThreads - 1) / aad::kLmsThreads);
-  aad::lms_lanes_kernel<<<grid, aad::kLmsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  static std::atomic<uint64_t> carveout_set{0};
+  err = aad::prefer_shared_once(aad::lms_lanes_kernel, device, carveout_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((num_lanes + aad::kLanesPerBlock - 1) / aad::kLanesPerBlock);
+  aad::lms_lanes_kernel<<<grid, aad::kLanesPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(qdiffs), static_cast<const int32_t*>(history),
       static_cast<const int32_t*>(weight), static_cast<int16_t*>(out), num_lanes, num_steps);
   return static_cast<int>(cudaGetLastError());

@@ -71,11 +71,6 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
 
 
-def _u16be(b: torch.Tensor, offset: int) -> torch.Tensor:
-    """Vectorised big-endian u16 read at a fixed offset of each block row."""
-    return (b[..., offset].to(torch.int32) << 8) | b[..., offset + 1].to(torch.int32)
-
-
 def pad_to_blocks(payload, num_blocks: int, geo: BlockGeometry) -> torch.Tensor:
     """The first ``num_blocks`` blocks of ``payload`` as (B, block_size) u8.
 
@@ -115,33 +110,31 @@ def split_blocks(payload, header: HeaderInfo, geo: BlockGeometry):
 
 
 def parse_block_headers(blocks, geo: BlockGeometry) -> BlockStates:
-    """Vectorised block-header state load (reference: src/aad_decoder.c:363-380)."""
+    """Vectorised block-header state load (reference: src/aad_decoder.c:363-380).
+
+    Each channel's 18 header bytes are nine big-endian u16 fields: the
+    step-index tag, then weight and history for each of the four taps.
+    All fields of all channels are read at once, a handful of device ops
+    whatever the channel count.
+    """
     blocks = _tensor(blocks)
     per_ch = 2 + 4 * FILTER_ORDER  # 18 bytes
-
-    step_index, weights, histories = [], [], []
-    for ch in range(geo.num_channels):
-        base = ch * per_ch
-        tag = _u16be(blocks, base)
-        # Parse-clamp: the 12-bit wire field reaches (4080, 4095] only on
-        # malformed streams (slot 256, out of the step table — UB in the
-        # reference, src/aad_tables.h:28); every engine pins those to
-        # 4080 at header parse so adversarial input cannot diverge them.
-        step_index.append(torch.clamp(tag >> TABLES_FLOAT_DIGITS, max=STEP_INDEX_MAX))
-        shift = tag & 0xF
-        w_taps, h_taps = [], []
-        for k in range(FILTER_ORDER):
-            # Weights were stored >> shift; re-apply the shift on load
-            # (reference: src/aad_decoder.c:375-376).
-            w_taps.append(sign_extend16(_u16be(blocks, base + 2 + 4 * k)) << shift)
-            h_taps.append(sign_extend16(_u16be(blocks, base + 4 + 4 * k)))
-        weights.append(torch.stack(w_taps, dim=-1))
-        histories.append(torch.stack(h_taps, dim=-1))
-
+    fields = blocks[..., : geo.num_channels * per_ch].reshape(
+        *blocks.shape[:-1], geo.num_channels, per_ch // 2, 2
+    ).to(torch.int32)
+    u16 = (fields[..., 0] << 8) | fields[..., 1]  # (..., C, 9)
+    tag = u16[..., 0]
+    taps = sign_extend16(u16[..., 1:])  # (..., C, 8): w0, h0, w1, h1, ...
+    # Parse-clamp: the 12-bit wire field reaches (4080, 4095] only on
+    # malformed streams (slot 256, out of the step table — UB in the
+    # reference, src/aad_tables.h:28); every engine pins those to 4080 at
+    # header parse so adversarial input cannot diverge them.
     return BlockStates(
-        step_index=torch.stack(step_index, dim=-1).to(torch.int32),
-        weight=torch.stack(weights, dim=-2).to(torch.int32),
-        history=torch.stack(histories, dim=-2).to(torch.int32),
+        step_index=torch.clamp(tag >> TABLES_FLOAT_DIGITS, max=STEP_INDEX_MAX),
+        # Weights were stored >> shift; re-apply the shift on load
+        # (reference: src/aad_decoder.c:375-376).
+        weight=taps[..., 0::2] << (tag & 0xF)[..., None],
+        history=taps[..., 1::2].contiguous(),
     )
 
 

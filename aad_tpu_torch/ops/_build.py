@@ -39,8 +39,8 @@ _I = ctypes.c_int
 # name -> argtypes; every function returns a cudaError_t as int.
 _SIGNATURES = {
     # codes, step_index, history, weight, step_table, index_table, out,
-    # num_lanes, num_codes, bits_per_sample, device, stream
-    "aad_decode_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # num_blocks, num_channels, num_codes, bits_per_sample, device, stream
+    "aad_decode_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # step_table, out, device, stream
     "aad_stepsize_probe": (_P, _P, _I, _P),
     # samples, prev0, valid, step_index, history, weight, step_table,

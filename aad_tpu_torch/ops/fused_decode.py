@@ -14,8 +14,9 @@ Not carried over from the TPU kernel, because they exist only for the TPU:
 
 * the f32 step-size formula and its correction set: the kernel reads the
   exact 256-entry int table, so the probe's correction set must be empty;
-* the u32 code words and the (8, 128) lane tiles: a thread is a lane here
-  and reads its code bytes time-major, which coalesces across a warp;
+* the u32 code words and the (8, 128) lane tiles: a thread is a lane here,
+  and the kernel takes the (B, C, T) code bytes of ``framing.block_codes``
+  as they are, staging each lane's next 64 codes in shared memory;
 * the R-fold lane interleave, which gave the TPU's scheduler independent
   chains; on the GPU the warp scheduler interleaves warps instead;
 * the packed sample-pair output: the kernel writes int16 rows directly.
@@ -54,7 +55,7 @@ def _require(cond: bool, what: str) -> None:
 
 
 def decode_lanes_reference(
-    codes_tm: torch.Tensor,
+    codes: torch.Tensor,
     step_index: torch.Tensor,
     history: torch.Tensor,
     weight: torch.Tensor,
@@ -63,26 +64,30 @@ def decode_lanes_reference(
     """Plain version of ``aad_decode_lanes``, on any device.
 
     The recurrence of ``ops.decode`` (phase A then phase B, vectorised over
-    lanes, looping over time), in the kernel's layout: (T, L) codes in,
-    (L, T + 4) int16 rows out, head samples first.
+    lanes, looping over time), in the kernel's layout: (B, C, T) codes in,
+    (C * B, T + 4) int16 rows out, head samples first.
     """
-    samples = decode_blocks(
-        codes_tm.t(), step_index, weight, history, bits_per_sample=bits_per_sample
-    )
+    B, C, T = codes.shape
+    lanes = codes.transpose(0, 1).reshape(C * B, T)  # lane c * B + b: channel c of block b
+    samples = decode_blocks(lanes, step_index, weight, history, bits_per_sample=bits_per_sample)
     return samples.to(torch.int16)
 
 
 def decode_lanes(
-    codes_tm: torch.Tensor,
+    codes: torch.Tensor,
     step_index: torch.Tensor,
     history: torch.Tensor,
     weight: torch.Tensor,
     bits_per_sample: int,
 ) -> torch.Tensor:
-    """Decode L independent lanes of T codes each.
+    """Decode the L = C * B independent lanes of a block batch, T codes each.
+
+    Lanes are channel-major: lane ``c * B + b`` is channel ``c`` of block
+    ``b``, so the rows of one channel come out consecutive.
 
     Args:
-      codes_tm:   (T, L) uint8 codes, time-major, each below 2**bits_per_sample.
+      codes:      (B, C, T) uint8 codes, as ``framing.block_codes`` gives
+                  them, each below 2**bits_per_sample.
       step_index: (L,) int32 initial Q4 step index (clamped to [0, 4080]).
       history:    (L, 4) int32 initial history, newest first.
       weight:     (L, 4) int32 initial weights.
@@ -91,9 +96,10 @@ def decode_lanes(
       followed by the T decoded samples.
     """
     _require(bits_per_sample in (2, 3, 4), f"bits_per_sample {bits_per_sample}")
-    _require(codes_tm.dim() == 2, f"codes must be (T, L), got {tuple(codes_tm.shape)}")
-    T, L = codes_tm.shape
-    _require(codes_tm.dtype == torch.uint8, f"codes must be uint8, got {codes_tm.dtype}")
+    _require(codes.dim() == 3, f"codes must be (B, C, T), got {tuple(codes.shape)}")
+    B, C, T = codes.shape
+    L = B * C
+    _require(codes.dtype == torch.uint8, f"codes must be uint8, got {codes.dtype}")
     for name, t, shape in (
         ("step_index", step_index, (L,)),
         ("history", history, (L, FILTER_ORDER)),
@@ -101,25 +107,27 @@ def decode_lanes(
     ):
         _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
         _require(tuple(t.shape) == shape, f"{name} must be {shape}, got {tuple(t.shape)}")
-        _require(t.device == codes_tm.device, f"{name} is on {t.device}, codes on {codes_tm.device}")
+        _require(t.device == codes.device, f"{name} is on {t.device}, codes on {codes.device}")
 
-    device = codes_tm.device
+    device = codes.device
     if device.type == "cpu":
-        return decode_lanes_reference(codes_tm, step_index, history, weight, bits_per_sample)
+        return decode_lanes_reference(codes, step_index, history, weight, bits_per_sample)
     _require(device.type == "cuda", f"no kernel for device {device}")
-    for name, t in (("codes", codes_tm), ("step_index", step_index),
+    for name, t in (("codes", codes), ("step_index", step_index),
                     ("history", history), ("weight", weight)):
         _require(t.is_contiguous(), f"{name} must be contiguous")
+    if codes.data_ptr() % 4:
+        codes = codes.clone()  # the kernel copies 4-byte words from 4-byte boundaries
 
     out = torch.empty((L, T + FILTER_ORDER), dtype=torch.int16, device=device)
     if L == 0:
         return out
     lib = _build.library()
     err = lib.aad_decode_lanes(
-        codes_tm.data_ptr(), step_index.data_ptr(), history.data_ptr(),
+        codes.data_ptr(), step_index.data_ptr(), history.data_ptr(),
         weight.data_ptr(), stepsize_table(device).data_ptr(),
         index_table(bits_per_sample, device).data_ptr(), out.data_ptr(),
-        L, T, bits_per_sample, *_build.launch_target(device),
+        B, C, T, bits_per_sample, *_build.launch_target(device),
     )
     _build.check(lib, DECODE_KERNEL, err)
     launches[DECODE_KERNEL] += 1

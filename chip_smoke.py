@@ -11,17 +11,23 @@ order; nothing is caught, so any failure exits non-zero:
 2. build: the CUDA kernels, from ``aad_tpu_torch/csrc`` (timed);
 3. probe: the step-size probe kernel reads exactly ``STEPSIZE_TABLE``;
 4. each decode kernel against its plain torch version, bit for bit: bps
-   2/3/4, a ragged lane count, step indices 0, 4080 and 4081-4095, weights
-   and history drawn as the benchmark draws them (the int32 sums wrap);
+   2/3/4, (B, C, T) codes with C = 1 and 2, lane counts that are not
+   multiples of the 64-lane CTA, T = 1, T + 4 odd or not a multiple of 8, T
+   not a multiple of the 64-position row tile, codes off a 4-byte boundary,
+   step indices 0, 4080 and 4081-4095, weights and histories over all of
+   int32 (the sums wrap);
 5. the decode main path at full size: the benchmark's 10-minute stereo 4-bit
    stream (58,066 lanes of 988 codes) through ``aad_tpu_torch.decode(...,
    device="cuda")``, counting kernel launches, then its mid/side variant,
    a short mono 3-bit stream with a ragged tail and a lenient decode of a
    truncated stream, each bit-exact against ``device="cpu"``;
-6. decode times, with CUDA events after warm-up: each kernel and its plain
-   version on the card at the main path's shapes, the device-resident
-   decode and the transfer-inclusive ``decode()``, and the resident
-   decode's device time by kernel under ``torch.profiler``;
+6. decode times, with CUDA events after warm-up: each kernel beside its
+   bound (and its share of it) and its plain version on the card at the
+   main path's shapes, kernel 1's bound from its step loop's instructions
+   by pipe (``cuobjdump -sass``), how its CTAs spread over the SMs, the
+   device-resident decode and the transfer-inclusive ``decode()``, and the
+   resident decode's device time by kernel under ``torch.profiler``, which
+   must show no time-major copy of the codes;
 7. each encode kernel against its plain torch version, bit for bit: bps
    2/3/4, trials 0/1/2, the previous-block warm-up on and off, per-block
    states, a carry in with blocks_before 0 and > 0, ragged valid counts
@@ -38,15 +44,16 @@ order; nothing is caught, so any failure exits non-zero:
    launch counts; and a round trip of the parallel stream through the
    CUDA decoder, its SNR beside the CPU round trip's;
 9. encode times: each encode kernel and its plain version on the card at
-   the main path's shapes, the device-resident and transfer-inclusive
+   the main path's shapes, kernel 3 also at the sequential path's (2 lanes
+   x 64 blocks a launch), the device-resident and transfer-inclusive
    parallel encode, and the sequential 60-second encode; the device time by
    kernel of the resident parallel and the sequential encode under
    ``torch.profiler``;
 10. the LMS kernel of the two-phase decode engine against its plain torch
    version, bit for bit: bps 2/3/4, qdiffs from ``compute_qdiffs_prefix``
-   of random codes (half the lanes at the top step), lane counts that are
-   not multiples of 32, T = 1 and 988, weights and histories over all of
-   int32 (the sums wrap); and ``compute_qdiffs_prefix`` against the loop
+   of random codes (half the lanes at the top step), the shapes of phase 4
+   and T = 988, weights and histories over all of int32 (the sums wrap);
+   and ``compute_qdiffs_prefix`` against the loop
    ``compute_qdiffs`` on the card;
 11. the slice's paths at full width: the benchmark stream and its mid/side
    variant through ``decode(..., device="cuda", engine="pallas")`` against
@@ -57,11 +64,15 @@ order; nothing is caught, so any failure exits non-zero:
    pushes of 1,000,003 bytes; ``StreamingEncoder`` over the 60-second
    signal in uneven chunks against the sequential ``encode()``; and a
    4-bit to 2-bit ``transcode``, cuda against cpu;
-12. the slice's times: the LMS kernel and its plain version at 58,066 x 988,
+12. the slice's times: the LMS kernel beside its bound (and its share of
+   it, its step loop counted as kernel 1's), its grid and its plain
+   version at 58,066 x 988,
    phase A (``compute_qdiffs_prefix``) and its peak memory, the resident
    two-phase decode beside the fused one (in turns), ``decode_batch`` of
    the pile and the streaming decode and encode in samples/s, and the
-   two-phase decode's device time by kernel under ``torch.profiler``.
+   device time by kernel of both resident decodes under ``torch.profiler``,
+   with their time-major copies of the codes (the two-phase decode's phase A
+   needs one; the fused decode none).
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -73,6 +84,8 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -92,26 +105,85 @@ STREAM_PUSH = 1_000_003  # bytes a StreamingDecoder push
 STREAM_CHUNKS = (123_457, 50_000, 991, 200_003)  # samples/ch a StreamingEncoder push, in turn
 
 # The least time the card could take (H100 SXM, NVIDIA's data sheet and the
-# Hopper white paper): HBM at 3.35 TB/s, and int32 issue at 64 lanes per SM
-# per clock on 132 SMs at the 1.98 GHz boost clock (half the float32 lanes).
+# Hopper white paper): HBM at 3.35 TB/s, and instructions on 132 SMs at the
+# 1.98 GHz boost clock, each pipe at its own rate.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Integer instructions per sample, counted from the kernels' loop bodies:
-# aad_decode_lanes (csrc/decode.cu), and encode_step plus its pass loop
-# (csrc/encode.cu; the quotient search has bps - 1 steps).
-DECODE_OPS_PER_SAMPLE = 40
-# aad_lms_lanes (csrc/lms.cu): 4-tap sum (4 mul, 4 add), shift, add, clip
-# (2), and 4 weight updates (mul, add, shift, add): 28 a sample.
-LMS_OPS_PER_SAMPLE = 28
+NUM_SMS = 132
+SM_CLOCK_HZ = 1.98e9
+# Thread-instructions an SM retires a clock, by pipe: its 4 schedulers issue
+# one warp instruction each ("issue": every instruction); the integer ALU
+# (adds, logic, shifts, min/max, compares) and the FMA pipe that runs IMAD
+# have 16 lanes a scheduler; shared memory serves 32 4-byte words.
+PIPE_RATE = {"issue": 128, "alu": 64, "fma": 64, "shared": 32}
+INT32_OPS_PER_S = NUM_SMS * PIPE_RATE["alu"] * SM_CLOCK_HZ
+# Kernels 1 and 5 are counted from their compiled loop (sass_per_sample).
+# The others are counted from their source, an integer operation each:
+# encode_step plus its pass loop (csrc/encode.cu; the quotient search has
+# bps - 1 steps), and the probe's table read.
 ENCODE_OPS_PER_STEP = {2: 52, 3: 56, 4: 60}
 PROBE_OPS_PER_SLOT = 5
+# SASS opcodes (before the first '.') that run on the integer ALU. IMAD*
+# runs on the FMA pipe, LDS and STS on shared memory. Any other opcode,
+# VIADD among them (its pipe is not documented), counts for issue only.
+ALU_OPCODES = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "IMNMX", "VIMNMX", "VIADDMNMX", "SEL", "PRMT",
+               "MOV", "IABS", "SGXT", "BMSK", "PLOP3", "FSEL"}
+DECODE_SYMBOL = "decode_lanes_kernelILi4E"  # aad_decode_lanes at 4 bits, as on the main path
+LMS_SYMBOL = "lms_lanes_kernel"
+SASS_INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def bound(num_bytes: float, ops: float) -> tuple[float, str]:
-    """(least ms, what bounds it): bytes over HBM rate vs ops over int32 rate."""
+def bound(num_bytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    """(least ms, what bounds it): bytes over HBM rate vs ops over their rate."""
     t_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_per_sample(symbol: str) -> dict:
+    """Instructions a sample of a staged-row kernel's step loop, by pipe,
+    counted from ``cuobjdump -sass`` of the built library.
+
+    ``symbol`` is part of the kernel's mangled name. The step loop is the
+    longest innermost loop (a backward branch) that stores to shared memory
+    (the table copies are the others): each of its STS is one pair of
+    samples into the staged output tile (``codec.cuh::run_rows``).
+    Returns the counts a sample under the keys of ``PIPE_RATE``, and
+    ``insns`` and ``samples`` of one pass of the loop.
+    """
+    from aad_tpu_torch.ops import _build
+
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:] if symbol in f.split("\n", 1)[0]]
+    check(len(funcs) == 1, f"{len(funcs)} functions named like {symbol} in the SASS")
+    insns = [(int(m[1], 16), m[2], m[3].split()) for m in SASS_INSN.finditer(funcs[0])]
+    loops = [(int(args[-1], 16), addr) for addr, op, args in insns
+             if op == "BRA" and args and args[-1].startswith("0x") and int(args[-1], 16) <= addr]
+    innermost = [(a, b) for a, b in loops if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    bodies = [[op for addr, op, _ in insns if a <= addr <= b] for a, b in innermost]
+    ops = max((ops for ops in bodies if "STS" in {op.split(".")[0] for op in ops}), key=len)
+    samples = 2 * sum(op.split(".")[0] == "STS" for op in ops)
+    count = {
+        "issue": len(ops),
+        "alu": sum(op.split(".")[0] in ALU_OPCODES for op in ops),
+        "fma": sum(op.startswith("IMAD") for op in ops),
+        "shared": sum(op.split(".")[0] in ("LDS", "STS") for op in ops),
+    }
+    return {**{p: n / samples for p, n in count.items()}, "insns": len(ops), "samples": samples}
+
+
+def loop_bound(num_bytes: float, samples: int, per_sample: dict) -> tuple[tuple[float, str], str]:
+    """``bound`` for a kernel counted by ``sass_per_sample``: its operations
+    are the busiest pipe's, at that pipe's rate. Returns (bound, the pipe)."""
+    pipe = max(PIPE_RATE, key=lambda p: per_sample[p] / PIPE_RATE[p])
+    return bound(num_bytes, samples * per_sample[pipe], NUM_SMS * PIPE_RATE[pipe] * SM_CLOCK_HZ), pipe
+
+
+def sass_line(per_sample: dict, pipe: str) -> str:
+    return (f"step loop of {per_sample['insns']} instructions for {per_sample['samples']} samples: "
+            + ", ".join(f"{p} {per_sample[p]:.3f}" for p in PIPE_RATE)
+            + f" a sample; the busiest pipe against its rate: {pipe}")
 
 
 def check(cond, what: str) -> None:
@@ -154,16 +226,22 @@ def bench_stream(num_samples, nch=2, bps=4, ms=False, seed=SEED, max_block_size=
     return at.encode_header(header) + payload.numpy().tobytes(), header
 
 
-def profile(label, fn, iters) -> None:
+def profile(label, fn, iters, time_major=None):
     """Print the device time by kernel of ``fn`` under torch.profiler, per
-    call, beside its CUDA-event time without the profiler."""
+    call, beside its CUDA-event time without the profiler.
+
+    With ``time_major=(T, L)`` it also counts, per call, the copies that
+    make a (T, ...) tensor of T * L elements: the time-major relayout of the
+    codes that phase A takes. Returns that count, or None.
+    """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     window_ms = cuda_ms(fn, iters, warmup=1)
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=time_major is not None) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -177,6 +255,41 @@ def profile(label, fn, iters) -> None:
           f"{busy:.4f} ms a call of device time under it, {len(rows)} kernels")
     for ms, count, name in rows[:10]:
         print(f"[profile]   {ms:.4f} ms x{count:g} {name[:100]}")
+    if time_major is None:
+        return None
+    T, L = time_major
+    copies = sum(
+        e.count for e in prof.key_averages(group_by_input_shape=True)
+        if e.device_type == DeviceType.CPU and e.key in ("aten::clone", "aten::contiguous")
+        and any(len(s) > 1 and s[0] == T and int(np.prod(s)) == T * L for s in e.input_shapes)
+    ) / iters
+    print(f"[profile]   time-major copies of the {T} x {L} codes: {copies:g} a call")
+    return copies
+
+
+def grid_line(symbol: str, L: int, cuda) -> str:
+    """How a staged-row kernel spreads L lanes over the SMs. The CTAs an SM
+    holds at once follow from the kernel's registers and shared memory, as
+    ``-Xptxas -v`` logs them at the build, under Hopper's limits: 65,536
+    registers an SM, allocated 256 a warp at a time; 228 KiB of shared
+    memory under the largest carveout, which the kernels ask for, 1 KiB of
+    it kept for each CTA; 32 CTAs and 64 warps."""
+    import torch
+    from aad_tpu_torch.ops import _build
+
+    per_cta = int(re.search(r"kLanesPerBlock = (\d+)", (_build.CSRC / "codec.cuh").read_text())[1])
+    log = (_build.build().parent / "build.log").read_text()
+    used = re.search(r"Compiling entry function '[^']*" + re.escape(symbol)
+                     + r"[^']*'.*?Used (\d+) registers[^\n]*?(\d+) bytes smem", log, re.S)
+    regs, smem = int(used[1]), int(used[2])
+    warps = per_cta // 32
+    per_sm = min(65536 // (-(-regs * 32 // 256) * 256 * warps), 228 * 1024 // (smem + 1024), 32, 64 // warps)
+    ctas = -(-L // per_cta)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    check(per_sm * sms >= ctas, f"{ctas} CTAs do not all fit at once ({per_sm} a SM on {sms} SMs)")
+    return (f"{L} lanes in {ctas} CTAs of {per_cta}; {regs} registers and {smem} bytes of shared memory "
+            f"a CTA, so up to {per_sm} resident a SM on {sms} SMs, all at once: the busiest SM holds "
+            f"{-(-ctas // sms)} CTAs against a mean of {ctas / sms:.2f}")
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -196,15 +309,33 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def lane_inputs(rng, L, T, bps):
+# Shapes around the staging of kernels 1 and 5 (64-lane CTAs, 64-position
+# row tiles, csrc/codec.cuh): (blocks, channels, codes). T + 4 odd and not a
+# multiple of 8, T not a multiple of 64, T = 1, lane counts that are not
+# multiples of 64.
+EDGE_SHAPES = ((1, 1, 1), (33, 2, 1), (70, 1, 21), (65, 2, 61), (129, 1, 124), (31, 2, 125), (64, 1, 128))
+
+
+def int32_wide(rng, L) -> np.ndarray:
+    """(L, 4) int32: half the rows over all of int32 (the sums wrap at once),
+    half as the benchmark draws histories."""
+    a = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
+    a[::2] = rng.integers(-32768, 32768, a[::2].shape)
+    return a
+
+
+def lane_inputs(rng, B, C, T, bps):
+    """(B, C, T) codes and channel-major lane states for aad_decode_lanes."""
     import torch
 
-    codes_tm = rng.integers(0, 2**bps, (T, L), dtype=np.uint8)
+    L = B * C
+    codes = rng.integers(0, 2**bps, (B, C, T), dtype=np.uint8)
     si = rng.integers(0, 4096, (L,)).astype(np.int32)
-    si[:17] = [0, 4080, *range(4081, 4096)]  # wire values, before the parse clamp
-    hist = rng.integers(-32768, 32768, (L, 4)).astype(np.int32)
-    wt = rng.integers(-20000, 20000, (L, 4)).astype(np.int32)
-    return [torch.from_numpy(a) for a in (codes_tm, si, hist, wt)]
+    si[: min(17, L)] = [0, 4080, *range(4081, 4096)][: min(17, L)]  # wire values, before the parse clamp
+    hist = int32_wide(rng, L)
+    wt = int32_wide(rng, L)
+    wt[1::4] = rng.integers(-20000, 20000, wt[1::4].shape)  # as the benchmark draws them
+    return [torch.from_numpy(a) for a in (codes, si, hist, wt)]
 
 
 def loud_int16(rng, shape) -> np.ndarray:
@@ -391,7 +522,7 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     """Phase 9: encode times at the main path's shapes; the encode kernels' records."""
     import torch
     import aad_tpu_torch as at
-    from aad_tpu_torch.codec.encoder import _pad_to_blocks
+    from aad_tpu_torch.codec.encoder import _OVERLAP_CHUNK_BLOCKS, _pad_to_blocks
     from aad_tpu_torch.ops import encode_pass as ep, fused_encode as fe
     from aad_tpu_torch.ops.transitions import CodecState
 
@@ -440,6 +571,21 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     pass_plain_ms = cuda_ms(lambda: ep.encode_pass_reference(*pass_args), 3, warmup=1)
     pass_bound = bound(T * 2 * 2 + 2 * (36 + 4) + 2 * (36 + 8), 2 * T * ENCODE_OPS_PER_STEP[bps])
 
+    # aad_encode_stream as the sequential path launches it: one chunk of
+    # _OVERLAP_CHUNK_BLOCKS blocks x 2 lanes (the channels), the trial
+    # search warming up on each previous block, every slot live
+    cb = _OVERLAP_CHUNK_BLOCKS
+    seq_t = torch.from_numpy(seq_pcm).to(cuda)
+    chunk, chunk_valid = _pad_to_blocks(seq_t, geo, cb, cb)  # the second chunk: blocks cb .. 2 cb - 1
+    seq_args = (chunk.transpose(1, 2).contiguous(), chunk_valid[:, None].expand(-1, 2).contiguous(),
+                CodecState.zeros((2,), cuda), _pad_to_blocks(seq_t, geo, cb - 1, 1)[0][0].t().contiguous(),
+                bps, trials)
+    seq_stream_ms = cuda_ms(lambda: fe.encode_stream_tm(*seq_args, warm_on_prev=True, blocks_before=cb), 3, warmup=1)
+    seq_live = torch.clamp(seq_args[1] - 4, 0, T)
+    seq_steps = int((seq_live * (1 + trials)).sum()) + cb * 2 * T * (trials + 1)  # measures, warm-ups, emit
+    seq_stream_bound = bound(cb * nspb * 2 * 2 + nspb * 2 * 2 + 2 * 36 + cb * 2 * (T + 40),
+                             seq_steps * ENCODE_OPS_PER_STEP[bps])
+
     # rates
     total = pcm.size
     enc = at.Encoder.from_config(cfg, device="cuda", parallel_blocks=True)
@@ -459,6 +605,10 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     print(f"[time] aad_encode_stream {L} lanes x 1 block of {nspb}, 4-bit trials {trials}, parallel: "
           f"kernel {stream_ms:.4f} ms, plain torch on the card {stream_plain_ms:.4f} ms, "
           f"bound {stream_bound[0]:.4f} ms ({stream_bound[1]}; {steps} sample-passes) ({card})")
+    print(f"[time] aad_encode_stream 2 lanes x {cb} blocks of {nspb}, trials {trials}, warm-up on the previous "
+          f"block (the sequential path, {main['seq_launches'][fe.STREAM_KERNEL]} launches in {SEQ_SECONDS} s): "
+          f"{seq_stream_ms:.4f} ms a launch, bound {seq_stream_bound[0]:.6f} ms ({seq_stream_bound[1]}; "
+          f"{seq_steps} sample-passes, {seq_stream_bound[0] / seq_stream_ms:.4%} of the bound) ({card})")
     print(f"[time] aad_encode_pass 2 lanes x {T} codes, measure: kernel {pass_ms:.4f} ms, "
           f"plain torch on the card {pass_plain_ms:.4f} ms, bound {pass_bound[0]:.6f} ms ({pass_bound[1]}) ({card})")
     print(f"[time] device-resident parallel encode_payload_ondevice: {resident_ms:.4f} ms, "
@@ -506,7 +656,7 @@ def lms_kernel_checks(cuda) -> int:
     rng = np.random.default_rng(SEED + 3)
     worst = 0
     for bps in (2, 3, 4):
-        for L, T in ((4099, 988), (1061, 1), (333, 988)):
+        for L, T in ((4099, 988), (1061, 1), (333, 988), *((B * C, T) for B, C, T in EDGE_SHAPES)):
             codes = torch.from_numpy(rng.integers(0, 2**bps, (T, L), dtype=np.uint8)).to(cuda)
             init = rng.integers(0, 4081, L).astype(np.int32)
             init[: L // 2] = 4080  # the top step: |qdiff| up to about 61k
@@ -514,8 +664,7 @@ def lms_kernel_checks(cuda) -> int:
             qdiffs = compute_qdiffs_prefix(codes, init, bps, dim=0)
             loop = compute_qdiffs(codes.t(), init, bps).t()
             check(torch.equal(qdiffs, loop), f"compute_qdiffs_prefix != compute_qdiffs on the card at bps={bps} L={L} T={T}")
-            history = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
-            history[::2] = rng.integers(-32768, 32768, history[::2].shape)
+            history = int32_wide(rng, L)
             weight = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
             weight[1::2] = rng.integers(-20000, 20000, weight[1::2].shape)
             weight[::4] = rng.integers(-20000, 20000, weight[::4].shape)  # as the benchmark draws them
@@ -684,7 +833,8 @@ def slice_times(cuda, card, bench, slice_run, lms_err) -> dict:
     kernel_ms = cuda_ms(lambda: lms.lms_lanes(qdiffs, history, weight), KERNEL_ITERS)
     plain_ms = cuda_ms(lambda: lms.lms_lanes_reference(qdiffs, history, weight), 3, warmup=1)
     kernel_ms_2 = cuda_ms(lambda: lms.lms_lanes(qdiffs, history, weight), KERNEL_ITERS)
-    lms_bound = bound(L * T * 4 + L * 32 + L * (T + 4) * 2, L * T * LMS_OPS_PER_SAMPLE)
+    lms_sass = sass_per_sample(LMS_SYMBOL)
+    lms_bound, lms_pipe = loop_bound(L * T * 4 + L * 32 + L * (T + 4) * 2, L * T, lms_sass)
     del qdiffs
 
     total = h.num_samples * h.num_channels
@@ -727,12 +877,19 @@ def slice_times(cuda, card, bench, slice_run, lms_err) -> dict:
         se.finish()
 
     stream_enc_s = host_s(stream_encode, 1)
-    profile("device-resident two-phase (pallas) decode, bench stream",
-            lambda: pallas.decode_payload_ondevice(payload), 10)
+    copies = profile("device-resident two-phase (pallas) decode, bench stream",
+                     lambda: pallas.decode_payload_ondevice(payload), 10, time_major=(T, L))
+    check(copies >= 1, "the profile does not see the two-phase decode's time-major code copy")
+    fused_copies = profile("device-resident fused decode, bench stream",
+                           lambda: fused.decode_payload_ondevice(payload), 10, time_major=(T, L))
+    check(fused_copies == 0, f"the fused decode copies the codes time-major ({fused_copies} a call)")
 
     print(f"[time] card: {card}")
+    print(f"[grid] aad_lms_lanes: {grid_line(LMS_SYMBOL, L, cuda)}")
+    print(f"[sass] aad_lms_lanes: {sass_line(lms_sass, lms_pipe)}")
     print(f"[time] aad_lms_lanes {L} lanes x {T} steps: kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms (two windows), "
-          f"plain torch on the card {plain_ms:.4f} ms, bound {lms_bound[0]:.4f} ms ({lms_bound[1]}) ({card})")
+          f"bound {lms_bound[0]:.4f} ms ({lms_bound[1]}), {lms_bound[0] / min(kernel_ms, kernel_ms_2):.1%} of the "
+          f"bound; plain torch on the card {plain_ms:.4f} ms ({card})")
     print(f"[time] phase A compute_qdiffs_prefix {T} x {L}: {phase_a_ms:.4f} ms, peak {phase_a_peak / 2**20:.1f} MiB "
           f"above its inputs; the loop compute_qdiffs on the card {phase_a_loop_ms:.4f} ms ({card})")
     for name in ("fused", "pallas"):
@@ -796,15 +953,21 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     decode_err = 0
     for bps in (2, 3, 4):
-        for L, T in ((4099, 988), (333, 2684)):
-            args = lane_inputs(rng, L, T, bps)
+        for B, C, T in ((2050, 2, 988), (333, 1, 2684), *EDGE_SHAPES):
+            args = lane_inputs(rng, B, C, T, bps)
             want = fd.decode_lanes_reference(*args, bps)
             got = fd.decode_lanes(*(a.to(cuda) for a in args), bps)
             torch.cuda.synchronize()
-            err = int((got.cpu().to(torch.int32) - want.to(torch.int32)).abs().max())
-            check(err == 0, f"kernel != plain at bps={bps} L={L} T={T}: max |err| {err}")
+            err = max_err(got, want)
+            check(err == 0, f"kernel != plain at bps={bps} B={B} C={C} T={T}: max |err| {err}")
             decode_err = max(decode_err, err)
-            print(f"[kernel-vs-plain] aad_decode_lanes bps={bps} lanes={L} codes={T}: bit-exact")
+            print(f"[kernel-vs-plain] aad_decode_lanes bps={bps} codes (B, C, T) = ({B}, {C}, {T}), "
+                  f"{B * C} lanes, rows of {T + 4}: bit-exact")
+    codes, si, hist, wt = lane_inputs(rng, 41, 1, 21, 4)
+    got = fd.decode_lanes(codes.to(cuda)[1:], *(a[1:].contiguous().to(cuda) for a in (si, hist, wt)), 4)
+    err = max_err(got, fd.decode_lanes_reference(codes[1:], si[1:], hist[1:], wt[1:], 4))
+    check(err == 0, f"kernel != plain on codes off a 4-byte boundary: max |err| {err}")
+    print("[kernel-vs-plain] aad_decode_lanes on a (40, 1, 21) view 21 bytes into its storage: bit-exact")
 
     # 5. main path at full size
     num_samples = RATE * SECONDS
@@ -864,21 +1027,23 @@ def main() -> int:
     # 6. times at the main path's shapes
     dec = at.Decoder.from_header(h, device="cuda")
     payload = torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()).to(cuda)
-    codes_tm = framed.codes.permute(2, 1, 0).reshape(framed.codes.shape[2], -1).contiguous().to(cuda)
     lanes = (
-        codes_tm,
+        framed.codes.to(cuda),  # (B, C, T), as framing.block_codes gives them
         framed.states.step_index.t().reshape(-1).contiguous().to(cuda),
         framed.states.history.transpose(0, 1).reshape(-1, 4).contiguous().to(cuda),
         framed.states.weight.transpose(0, 1).reshape(-1, 4).contiguous().to(cuda),
         4,
     )
+    B, C, T = lanes[0].shape
+    L = B * C
     got = fd.decode_lanes(*lanes)
     want = fd.decode_lanes_reference(*lanes)
-    check(torch.equal(got, want), "kernel != plain on the card at the main-path shape")
-    full_err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    full_err = max_err(got, want)
+    check(full_err == 0, "kernel != plain on the card at the main-path shape")
     del got, want
     kernel_ms = cuda_ms(lambda: fd.decode_lanes(*lanes), KERNEL_ITERS)
     plain_ms = cuda_ms(lambda: fd.decode_lanes_reference(*lanes), PLAIN_ITERS, warmup=1)
+    kernel_ms_2 = cuda_ms(lambda: fd.decode_lanes(*lanes), KERNEL_ITERS)
     probe_ms = cuda_ms(lambda: fd.stepsize_probe(cuda), KERNEL_ITERS)
     probe_plain_ms = cuda_ms(lambda: fd.stepsize_probe_reference(cuda), KERNEL_ITERS)
     resident_ms = cuda_ms(lambda: dec.decode_payload_ondevice(payload), DECODE_ITERS)
@@ -889,22 +1054,22 @@ def main() -> int:
     for _ in range(DECODE_ITERS):
         at.decode(data, device="cuda")
     e2e_s = (time.perf_counter() - t0) / DECODE_ITERS
-    L = codes_tm.shape[1]
+    decode_sass = sass_per_sample(DECODE_SYMBOL)
+    decode_bound, decode_pipe = loop_bound(T * L + L * 36 + L * (T + 4) * 2, L * T, decode_sass)
+    probe_bound = bound(2 * 256 * 4, 256 * PROBE_OPS_PER_SLOT)
     print(f"[time] card: {card}")
-    print(f"[time] aad_decode_lanes {L} lanes x {codes_tm.shape[0]} codes, 4-bit: "
-          f"kernel {kernel_ms:.4f} ms, plain torch on the card {plain_ms:.4f} ms ({card})")
-    print(f"[time] aad_stepsize_probe 256 slots: kernel {probe_ms:.4f} ms, "
-          f"plain {probe_plain_ms:.4f} ms ({card})")
+    print(f"[grid] aad_decode_lanes: {grid_line(DECODE_SYMBOL, L, cuda)}")
+    print(f"[sass] aad_decode_lanes 4-bit: {sass_line(decode_sass, decode_pipe)}")
+    print(f"[time] aad_decode_lanes {L} lanes x {T} codes, 4-bit, (B, C, T) codes: "
+          f"kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms (two windows), bound {decode_bound[0]:.4f} ms "
+          f"({decode_bound[1]}), {decode_bound[0] / min(kernel_ms, kernel_ms_2):.1%} of the bound; "
+          f"plain torch on the card {plain_ms:.4f} ms ({card})")
+    print(f"[time] aad_stepsize_probe 256 slots: kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, "
+          f"bound {probe_bound[0]:.6f} ms ({probe_bound[1]}) ({card})")
     print(f"[time] device-resident decode_payload_ondevice: {resident_ms:.4f} ms, "
           f"{total / (resident_ms / 1e3):.6e} samples/s ({card})")
     print(f"[time] transfer-inclusive decode(): {e2e_s * 1e3:.4f} ms, "
           f"{total / e2e_s:.6e} samples/s ({card})")
-
-    T = codes_tm.shape[0]
-    decode_bound = bound(T * L + L * 36 + L * (T + 4) * 2, L * T * DECODE_OPS_PER_SAMPLE)
-    probe_bound = bound(2 * 256 * 4, 256 * PROBE_OPS_PER_SLOT)
-    print(f"[time] bounds: aad_decode_lanes {decode_bound[0]:.4f} ms ({decode_bound[1]}), "
-          f"aad_stepsize_probe {probe_bound[0]:.6f} ms ({probe_bound[1]})")
     records = [
         {"name": fd.DECODE_KERNEL, "route": "cuda", "source": "aad_tpu_torch/csrc/decode.cu",
          "replaces": "aad_tpu/ops/pallas_decode.py:542", "launches": launches[fd.DECODE_KERNEL],
@@ -915,8 +1080,10 @@ def main() -> int:
          "max_abs_err": probe_err, "ms": probe_ms, "plain_ms": probe_plain_ms,
          "bound_ms": probe_bound[0], "bound_by": probe_bound[1], "library_ms": None},
     ]
-    profile("device-resident decode, bench stream", lambda: dec.decode_payload_ondevice(payload), 10)
-    del framed, codes_tm, lanes, payload, dec
+    copies = profile("device-resident fused decode, bench stream", lambda: dec.decode_payload_ondevice(payload),
+                     10, time_major=(T, L))
+    check(copies == 0, f"the fused decode still copies the codes time-major ({copies} a call)")
+    del framed, lanes, payload, dec
 
     # 7-9. encode
     stream_err, pass_err = encode_kernel_checks(cuda)

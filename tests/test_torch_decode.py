@@ -111,22 +111,52 @@ def test_plain_stepsize_probe_has_no_corrections():
     assert fused_decode.stepsize_corrections("cpu") == ()
 
 
+def _block_lanes(codes, si, wt, hi):
+    """(B, C, ...) block-batch arrays -> the kernel's channel-major lanes."""
+    B, C, T = codes.shape
+    lanes = lambda a: torch.from_numpy(np.ascontiguousarray(a.swapaxes(0, 1).reshape(C * B, *a.shape[2:])))
+    return torch.from_numpy(codes), lanes(si), lanes(hi), lanes(wt)
+
+
+@pytest.mark.parametrize("engine", ["scan", "fused"])
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("bps", [2, 3, 4])
+def test_decode_lanes_block_order_matches_jax(bps, C, engine):
+    """decode_lanes and decode_lanes_reference take framing.block_codes' (B, C, T)
+    codes and return channel-major rows (lane c * B + b): equal to aad_tpu's
+    scan engine and to its fused Pallas kernel in interpret mode."""
+    B, T = 1024 // C, 21  # one 1024-lane tile; T + 4 odd
+    codes, si, wt, hi = _lanes(80 + 2 * bps + C, B * C, T, bps)
+    codes, si, wt, hi = codes.reshape(B, C, T), si.reshape(B, C), wt.reshape(B, C, 4), hi.reshape(B, C, 4)
+    want = np.asarray(jd.decode_blocks(
+        jnp.asarray(codes), jnp.asarray(si), jnp.asarray(wt), jnp.asarray(hi),
+        bits_per_sample=bps, engine=engine,
+    ))
+    want = want.swapaxes(0, 1).reshape(C * B, T + 4)
+    args = _block_lanes(codes, si, wt, hi)
+    before = dict(fused_decode.launches)
+    got = fused_decode.decode_lanes(*args, bps)
+    assert fused_decode.launches == before
+    assert got.dtype == torch.int16 and got.shape == (C * B, T + 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(fused_decode.decode_lanes_reference(*args, bps).numpy(), want)
+
+
 @pytest.mark.parametrize("bps", [2, 3, 4])
 def test_cpu_wrapper_runs_plain_version_without_launching(bps):
-    codes, si, wt, hi = _lanes(60 + bps, 37, 21, bps)
+    codes, si, wt, hi = _lanes(60 + bps, 37 * 2, 21, bps)
+    codes, si, wt, hi = codes.reshape(37, 2, 21), si.reshape(37, 2), wt.reshape(37, 2, 4), hi.reshape(37, 2, 4)
     before = dict(fused_decode.launches)
-    got = fused_decode.decode_lanes(
-        torch.from_numpy(np.ascontiguousarray(codes.T)), *_t(si, hi, wt), bps
-    )
+    got = fused_decode.decode_lanes(*_block_lanes(codes, si, wt, hi), bps)
     assert fused_decode.launches == before
-    assert got.dtype == torch.int16 and got.shape == (37, 25)
-    want = td.decode_blocks(*_t(codes, si, wt, hi), bits_per_sample=bps)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert got.dtype == torch.int16 and got.shape == (74, 25)
+    want = td.decode_blocks(*_t(codes, si, wt, hi), bits_per_sample=bps)  # (B, C, T + 4)
+    np.testing.assert_array_equal(got.numpy(), want.transpose(0, 1).reshape(74, 25).numpy())
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     codes, si, wt, hi = _lanes(70, 8, 5, 4)
-    c, s, h, w = torch.from_numpy(np.ascontiguousarray(codes.T)), *_t(si, hi, wt)
+    c, s, h, w = _block_lanes(codes.reshape(4, 2, 5), si.reshape(4, 2), wt.reshape(4, 2, 4), hi.reshape(4, 2, 4))
     with pytest.raises(ValueError):
         fused_decode.decode_lanes(c.to(torch.int32), s, h, w, 4)
     with pytest.raises(ValueError):
@@ -135,6 +165,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_decode.decode_lanes(c, s, h.to(torch.int64), w, 4)
     with pytest.raises(ValueError):
         fused_decode.decode_lanes(c, s, h, w, 5)
+    with pytest.raises(ValueError):
+        fused_decode.decode_lanes(c.reshape(8, 5), s, h, w, 4)  # time-major or lane rows: not (B, C, T)
     with pytest.raises(ValueError):
         fused_decode.decode_lanes(c.to("meta"), s.to("meta"), h.to("meta"), w.to("meta"), 4)
 

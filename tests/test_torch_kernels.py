@@ -32,14 +32,31 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _lanes(seed, L, T, bps):
+# Shapes around the kernels' staging: 64-lane CTAs and 64-position row tiles
+# (csrc/codec.cuh). T + 4 odd (2-byte rows) and not a multiple of 8, T not a
+# multiple of 64 and T = 1, lane counts that are not multiples of 64.
+EDGE_SHAPES = [(1, 1, 1), (33, 2, 1), (70, 1, 21), (65, 2, 61), (129, 1, 124), (31, 2, 125), (64, 1, 128)]
+
+
+def _int32_wide(rng, L):
+    """(L, 4) int32 over all of int32 on half the rows, else as the benchmark draws them."""
+    a = rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True).astype(np.int32)
+    a[::2] = rng.integers(-32768, 32768, a[::2].shape)
+    return a
+
+
+def _lanes(seed, B, C, T, bps):
+    """(B, C, T) codes and channel-major lane states: step indices 0, 4080
+    and 4081-4095 (the parse clamp), histories and weights over int32."""
     rng = np.random.default_rng(seed)
-    codes_tm = rng.integers(0, 2**bps, (T, L), dtype=np.uint8)
+    L = B * C
+    codes = rng.integers(0, 2**bps, (B, C, T), dtype=np.uint8)
     si = rng.integers(0, 4096, (L,)).astype(np.int32)
-    si[:17] = [0, 4080, *range(4081, 4096)]
-    hi = rng.integers(-32768, 32768, (L, 4)).astype(np.int32)
-    wt = rng.integers(-20000, 20000, (L, 4)).astype(np.int32)
-    return [torch.from_numpy(a) for a in (codes_tm, si, hi, wt)]
+    si[: min(17, L)] = [0, 4080, *range(4081, 4096)][: min(17, L)]
+    hi = _int32_wide(rng, L)
+    wt = _int32_wide(rng, L)
+    wt[1::4] = rng.integers(-20000, 20000, wt[1::4].shape)
+    return [torch.from_numpy(a) for a in (codes, si, hi, wt)]
 
 
 def test_stepsize_probe_equals_table(cuda):
@@ -50,16 +67,25 @@ def test_stepsize_probe_equals_table(cuda):
 
 
 @pytest.mark.parametrize("bps", [2, 3, 4])
-@pytest.mark.parametrize("L,T", [(1000, 300), (257, 988)])
-def test_decode_lanes_kernel_matches_plain(cuda, bps, L, T):
-    args = _lanes(bps * 7 + L, L, T, bps)
+@pytest.mark.parametrize("B,C,T", [(500, 2, 300), (257, 1, 988), *EDGE_SHAPES])
+def test_decode_lanes_kernel_matches_plain(cuda, bps, B, C, T):
+    args = _lanes(bps * 7 + B * C + T, B, C, T, bps)
     want = fused_decode.decode_lanes_reference(*args, bps)
     before = fused_decode.launches[fused_decode.DECODE_KERNEL]
     got = fused_decode.decode_lanes(*(a.to(cuda) for a in args), bps)
     torch.cuda.synchronize()
     assert fused_decode.launches[fused_decode.DECODE_KERNEL] == before + 1
-    assert got.dtype == torch.int16 and got.shape == (L, T + 4)
+    assert got.dtype == torch.int16 and got.shape == (B * C, T + 4)
     assert torch.equal(got.cpu(), want)
+
+
+def test_decode_lanes_kernel_takes_unaligned_codes(cuda):
+    """A (B, C, T) view whose first byte is off a 4-byte boundary."""
+    codes, si, hi, wt = _lanes(5, 41, 1, 21, 4)
+    view = codes.to(cuda)[1:]  # starts 21 bytes in
+    args = (si[1:].contiguous(), hi[1:].contiguous(), wt[1:].contiguous())
+    want = fused_decode.decode_lanes_reference(codes[1:], *args, 4)
+    assert torch.equal(fused_decode.decode_lanes(view, *(a.to(cuda) for a in args), 4).cpu(), want)
 
 
 def _stream(nch, ms, bps):
@@ -95,7 +121,7 @@ def test_cuda_decode_matches_cpu(cuda, nch, ms, bps):
 
 
 @pytest.mark.parametrize("bps", [2, 3, 4])
-@pytest.mark.parametrize("L,T", [(1000, 300), (257, 988), (33, 1)])
+@pytest.mark.parametrize("L,T", [(1000, 300), (257, 988), *((B * C, T) for B, C, T in EDGE_SHAPES)])
 def test_lms_lanes_kernel_matches_plain(cuda, bps, L, T):
     """qdiffs from the prefix scan (half the lanes at the top step), weights
     over all of int32 on a quarter of the lanes and int32-wide histories on
