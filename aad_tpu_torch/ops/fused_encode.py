@@ -12,6 +12,14 @@ rebuilt by one pass of ``aad_encode_pass`` over that block from its header
 state, where ``aad_tpu`` runs its per-pass kernel
 (``pallas_encode_fused.py:1145-1166``).
 
+``pass_stack``'s semantics carry over as the kernel's paired schedule. Where
+the trial search warms on the previous block (the sequential path,
+``StreamingEncoder``, the chunked parallel mode), the baseline measure and
+the speculative emits run beside the chain of warm-ups and measures, on a
+second thread of each lane, so a block takes 2N passes of latency in place
+of 2N + 2; a narrow launch also stages its samples in shared memory
+(``csrc/encode.cu``). The block-parallel mode keeps the serial trial search.
+
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. Nothing falls back. :data:`launches` counts kernel launches.
 
@@ -20,9 +28,8 @@ Not carried over from the TPU kernel, because they exist only for the TPU:
 * the u32 sample-pair words, the (8, 128) lane tiles and the R-fold lane
   interleave (``AAD_TPU_ENCODE_R``): a thread is a lane, and samples go in
   as int16, time-major;
-* ``pass_stack``, which stacked independent passes on a tile's dead sublane
-  rows: its semantics are the ordinary trial search, which the kernel
-  computes directly;
+* ``pass_stack``'s stacking of two passes on a tile's dead sublane rows:
+  two threads of a warp take that place;
 * the VMEM chunked-DMA variant for large blocks: the kernel reads device
   memory directly at any block size;
 * the f32 step-size formula with its correction set: the kernel reads the

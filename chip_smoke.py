@@ -29,7 +29,8 @@ order; nothing is caught, so any failure exits non-zero:
    resident decode's device time by kernel under ``torch.profiler``, which
    must show no time-major copy of the codes;
 7. each encode kernel against its plain torch version, bit for bit: bps
-   2/3/4, trials 0/1/2, the previous-block warm-up on and off, per-block
+   2/3/4, trials 0/1/2, the previous-block warm-up on and off (the serial
+   and the paired schedule, its samples staged or not), per-block
    states, a carry in with blocks_before 0 and > 0, ragged valid counts
    below 4, lane counts that are not multiples of 32, forged states whose
    sums wrap, and ``aad_encode_pass`` measuring and emitting;
@@ -45,9 +46,15 @@ order; nothing is caught, so any failure exits non-zero:
    CUDA decoder, its SNR beside the CPU round trip's;
 9. encode times: each encode kernel and its plain version on the card at
    the main path's shapes, kernel 3 also at the sequential path's (2 lanes
-   x 64 blocks a launch), the device-resident and transfer-inclusive
-   parallel encode, and the sequential 60-second encode; the device time by
-   kernel of the resident parallel and the sequential encode under
+   x 64 blocks a launch, its first 8 blocks held against the plain version
+   on the host), kernels 3 (there) and 4 beside a latency bound:
+   the loop-carried path of their compiled loop (``cuobjdump -sass``, at
+   the per-instruction latencies it prints) times the sample-passes that
+   depend on each other; kernel 3 with the previous-block warm-up over
+   2 to 58,066 lanes (the lane sweep, each count with the schedule the
+   kernel takes); the device-resident and transfer-inclusive parallel
+   encode, and the sequential 60-second encode; the device time by kernel
+   of the resident parallel and the sequential encode under
    ``torch.profiler``;
 10. the LMS kernel of the two-phase decode engine against its plain torch
    version, bit for bit: bps 2/3/4, qdiffs from ``compute_qdiffs_prefix``
@@ -82,6 +89,7 @@ its bound), and the card's name and power limit. The last line is
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import pathlib
@@ -101,6 +109,7 @@ DECODE_ITERS = 20
 ENCODE_ITERS = 10
 SEQ_SECONDS = 60  # the sequential encode's stream: its first minute
 PREFIX_BLOCKS = 8
+SEQ_CHECK_BLOCKS = 8  # blocks of kernel 3's sequential-shape launch held against the plain version
 STREAM_PUSH = 1_000_003  # bytes a StreamingDecoder push
 STREAM_CHUNKS = (123_457, 50_000, 991, 200_003)  # samples/ch a StreamingEncoder push, in turn
 
@@ -116,12 +125,19 @@ SM_CLOCK_HZ = 1.98e9
 # have 16 lanes a scheduler; shared memory serves 32 4-byte words.
 PIPE_RATE = {"issue": 128, "alu": 64, "fma": 64, "shared": 32}
 INT32_OPS_PER_S = NUM_SMS * PIPE_RATE["alu"] * SM_CLOCK_HZ
-# Kernels 1 and 5 are counted from their compiled loop (sass_per_sample).
-# The others are counted from their source, an integer operation each:
-# encode_step plus its pass loop (csrc/encode.cu; the quotient search has
-# bps - 1 steps), and the probe's table read.
-ENCODE_OPS_PER_STEP = {2: 52, 3: 56, 4: 60}
+# Kernels 1, 3, 4 and 5 are counted from their compiled loop (sass_per_sample,
+# sass_loop). The probe is counted from its source, an integer operation
+# each for its table read.
 PROBE_OPS_PER_SLOT = 5
+# The latency bound (chain_cycles) takes these cycles from the issue of an
+# instruction to the issue of one that reads its result. They are estimates,
+# not measured on the card: 4 for the fixed-latency integer and predicate
+# pipes (IMAD included), 23 for a shared-memory load and 33 for a global
+# load that hits L1. Every other opcode takes FIXED_LATENCY. The step loop of
+# kernel 3 runs about twice the path they give (PERF.md), so the bound they
+# make is a floor, not a forecast.
+FIXED_LATENCY = 4
+LATENCY = {"LDS": 23, "LDG": 33}
 # SASS opcodes (before the first '.') that run on the integer ALU. IMAD*
 # runs on the FMA pipe, LDS and STS on shared memory. Any other opcode,
 # VIADD among them (its pipe is not documented), counts for issue only.
@@ -129,7 +145,15 @@ ALU_OPCODES = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "IMNMX", "VIMNMX", "VIADD
                "MOV", "IABS", "SGXT", "BMSK", "PLOP3", "FSEL"}
 DECODE_SYMBOL = "decode_lanes_kernelILi4E"  # aad_decode_lanes at 4 bits, as on the main path
 LMS_SYMBOL = "lms_lanes_kernel"
-SASS_INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+SERIAL_SYMBOL = "encode_stream_kernelILi4E"  # aad_encode_stream's serial schedule, 4 bits
+PAIRED_SYMBOL = "encode_stream_paired_kernelILi4ELb1E"  # its paired schedule, staged (the sequential shape's)
+PASS_SYMBOL = "encode_pass_kernelILi4E"
+# Lane counts of kernel 3's sweep: the sequential path's 2 (its channels), the
+# widest launch that stages its samples (csrc/encode.cu: kStageMaxLanes),
+# the chunked parallel mode's 14,518 (chunks of 4), the parallel mode's 58,066.
+SWEEP_LANES = (2, 64, 1024, 4096, 14518, 58066)
+SASS_INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+SASS_REG = re.compile(r"\b(U?R|U?P)(\d+)(\.64)?\b")
 
 
 def bound(num_bytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
@@ -139,31 +163,41 @@ def bound(num_bytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> t
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sass_per_sample(symbol: str) -> dict:
-    """Instructions a sample of a staged-row kernel's step loop, by pipe,
-    counted from ``cuobjdump -sass`` of the built library.
-
-    ``symbol`` is part of the kernel's mangled name. The step loop is the
-    longest innermost loop (a backward branch) that stores to shared memory
-    (the table copies are the others): each of its STS is one pair of
-    samples into the staged output tile (``codec.cuh::run_rows``).
-    Returns the counts a sample under the keys of ``PIPE_RATE``, and
-    ``insns`` and ``samples`` of one pass of the loop.
-    """
+@functools.cache
+def sass_text() -> str:
+    """``cuobjdump -sass`` of the built library."""
     from aad_tpu_torch.ops import _build
 
     cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+    return subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
-    funcs = [f for f in sass.split("Function : ")[1:] if symbol in f.split("\n", 1)[0]]
+
+
+def sass_loop(symbol: str, marker: str, without: str = "") -> list[tuple[str, str, str]]:
+    """The instructions (guard, opcode, operands) of the longest innermost
+    loop (a backward branch) that holds an instruction of opcode ``marker``
+    and none of opcode ``without``, in the kernel whose mangled name
+    contains ``symbol``."""
+    funcs = [f for f in sass_text().split("Function : ")[1:] if symbol in f.split("\n", 1)[0]]
     check(len(funcs) == 1, f"{len(funcs)} functions named like {symbol} in the SASS")
-    insns = [(int(m[1], 16), m[2], m[3].split()) for m in SASS_INSN.finditer(funcs[0])]
-    loops = [(int(args[-1], 16), addr) for addr, op, args in insns
-             if op == "BRA" and args and args[-1].startswith("0x") and int(args[-1], 16) <= addr]
+    insns = [(int(m[1], 16), (m[2] or "").strip(), m[3], m[4]) for m in SASS_INSN.finditer(funcs[0])]
+    loops = [(int(args.split()[-1], 16), addr) for addr, _, op, args in insns
+             if op == "BRA" and args.split() and args.split()[-1].startswith("0x") and int(args.split()[-1], 16) <= addr]
     innermost = [(a, b) for a, b in loops if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
-    bodies = [[op for addr, op, _ in insns if a <= addr <= b] for a, b in innermost]
-    ops = max((ops for ops in bodies if "STS" in {op.split(".")[0] for op in ops}), key=len)
-    samples = 2 * sum(op.split(".")[0] == "STS" for op in ops)
+    bodies = [[(g, op, args) for addr, g, op, args in insns if a <= addr <= b] for a, b in innermost]
+    opcodes = [{op.split(".")[0] for _, op, _ in body} for body in bodies]
+    return max((body for body, ops in zip(bodies, opcodes) if marker in ops and without not in ops), key=len)
+
+
+def sample_loads(loop: list[tuple[str, str, str]]) -> int:
+    """The samples one pass of an encode kernel's step loop steps over: its
+    2-byte loads, from device memory or from a staged tile."""
+    return sum(op.split(".")[0] in ("LDG", "LDS") and (".U16" in op or ".S16" in op) for _, op, _ in loop)
+
+
+def pipe_counts(ops: list[str], samples: int) -> dict:
+    """Instructions a sample by pipe (the keys of ``PIPE_RATE``), with
+    ``insns`` and ``samples`` of one pass of the loop."""
     count = {
         "issue": len(ops),
         "alu": sum(op.split(".")[0] in ALU_OPCODES for op in ops),
@@ -171,6 +205,62 @@ def sass_per_sample(symbol: str) -> dict:
         "shared": sum(op.split(".")[0] in ("LDS", "STS") for op in ops),
     }
     return {**{p: n / samples for p, n in count.items()}, "insns": len(ops), "samples": samples}
+
+
+def sass_per_sample(symbol: str) -> dict:
+    """Instructions a sample of a staged-row kernel's step loop, by pipe.
+
+    The step loop is the longest innermost loop that stores to shared
+    memory (the table copies are the others): each of its STS is one pair
+    of samples into the staged output tile (``codec.cuh::run_rows``).
+    """
+    ops = [op for _, op, _ in sass_loop(symbol, "STS")]
+    return pipe_counts(ops, 2 * sum(op.split(".")[0] == "STS" for op in ops))
+
+
+def chain_cycles(body: list[tuple[str, str, str]], iters: int = 32) -> float:
+    """Cycles a pass of a loop takes when only its dependences through
+    registers and predicates hold it back (issue unlimited), each
+    instruction taking its ``LATENCY``: how far the latest result moves
+    each time the body runs, over the second half of ``iters`` runs."""
+    ready: dict[str, float] = {}
+    latest = []
+
+    def regs(text, wide=False):
+        out = []
+        for kind, num, pair in SASS_REG.findall(text):
+            out.append(f"{kind}{num}")
+            if kind.endswith("R") and (pair or wide):
+                out.append(f"{kind}{int(num) + 1}")
+        return out
+
+    for _ in range(iters):
+        for guard, op, args in body:
+            base = op.split(".")[0]
+            if base in ("BRA", "NOP", "BSSY", "BSYNC", "WARPSYNC"):
+                continue
+            operands = [o.strip() for o in args.split(",")]
+            dests = []
+            if not (base.startswith("ST") or base in ("RED", "ATOM")) and operands[0]:
+                dests = regs(operands[0], wide=".64" in op or ".WIDE" in op)
+                if len(operands) > 1 and re.fullmatch(r"!?U?P[0-6T]", operands[1]):
+                    dests += regs(operands[1])  # a predicate or carry out
+                    operands = operands[1:]
+                operands = operands[1:]
+            start = max((ready.get(r, 0.0) for r in regs(",".join([*operands, guard]))), default=0.0)
+            for r in dests:
+                ready[r] = start + LATENCY.get(base, FIXED_LATENCY)
+        latest.append(max(ready.values(), default=0.0))
+    half = iters // 2
+    return (latest[-1] - latest[half - 1]) / (iters - half)
+
+
+def latency_line(body: list[tuple[str, str, str]], samples: int) -> tuple[float, str]:
+    """(cycles a sample on the loop-carried chain, a line that says how)."""
+    cycles = chain_cycles(body) / samples
+    assumed = ", ".join(f"{k} {v}" for k, v in LATENCY.items())
+    return cycles, (f"loop of {len(body)} instructions for {samples} samples: {cycles:.2f} cycles a sample on its "
+                    f"loop-carried chain, taking {assumed} and every other opcode {FIXED_LATENCY} cycles")
 
 
 def loop_bound(num_bytes: float, samples: int, per_sample: dict) -> tuple[tuple[float, str], str]:
@@ -389,8 +479,9 @@ def encode_kernel_checks(cuda) -> tuple[int, int]:
     stream_err = 0
     cases = [(bps, trials, warm, 3, 1061, 36)
              for bps in (2, 3, 4) for trials in (0, 1, 2) for warm in (True, False)]
-    # the full 1024-byte geometries: stereo 4-bit, mono 3-bit (2684 samples a block)
-    cases += [(4, 2, True, 2, 67, 992), (3, 2, False, 2, 33, 2684)]
+    # the full 1024-byte geometries: stereo 4-bit, mono 3-bit (2684 samples a
+    # block); and a launch too wide to stage its samples
+    cases += [(4, 2, True, 2, 67, 992), (3, 2, False, 2, 33, 2684), (4, 1, True, 2, 4101, 36)]
     for i, (bps, trials, warm, B, L, nspb) in enumerate(cases):
         x = torch.from_numpy(loud_int16(rng, (B, L, nspb)))
         valid = rng.integers(0, nspb + 1, (B, L)).astype(np.int32)
@@ -555,7 +646,10 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     )
     n_live = torch.clamp(lane_valid - 4, 0, T)
     steps = int((trials * n_live * (lane_valid >= 4)).sum()) + L * T  # measures (data-dependent) + emit
-    stream_bound = bound(L * nspb * 2 + L * 4 + L * 36 + L * T + L * 40, steps * ENCODE_OPS_PER_STEP[bps])
+    # each sample-pass at the serial schedule's measure loop, by pipe
+    serial_loop = sass_loop(SERIAL_SYMBOL, "LDG", without="STG")
+    serial_sass = pipe_counts([op for _, op, _ in serial_loop], sample_loads(serial_loop))
+    stream_bound, stream_pipe = loop_bound(L * nspb * 2 + L * 4 + L * 36 + L * T + L * 40, steps, serial_sass)
 
     # aad_encode_pass as the sequential path launches it: the carry pass over
     # one chunk's last block, 2 lanes (the channels), every slot live
@@ -569,7 +663,13 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
           "aad_encode_pass != plain at the main-path shape")
     pass_ms = cuda_ms(lambda: ep.encode_pass(*pass_args), KERNEL_ITERS)
     pass_plain_ms = cuda_ms(lambda: ep.encode_pass_reference(*pass_args), 3, warmup=1)
-    pass_bound = bound(T * 2 * 2 + 2 * (36 + 4) + 2 * (36 + 8), 2 * T * ENCODE_OPS_PER_STEP[bps])
+    # its loop as the measure runs it: issue by pipe, and the loop-carried chain
+    pass_loop = sass_loop(PASS_SYMBOL, "LDG", without="STG")
+    loop_samples = sample_loads(pass_loop)
+    pass_sass = pipe_counts([op for _, op, _ in pass_loop], loop_samples)
+    pass_bound, pass_pipe = loop_bound(T * 2 * 2 + 2 * (36 + 4) + 2 * (36 + 8), 2 * T, pass_sass)
+    pass_cycles, pass_chain = latency_line(pass_loop, loop_samples)
+    pass_latency_ms = T * pass_cycles / SM_CLOCK_HZ * 1e3
 
     # aad_encode_stream as the sequential path launches it: one chunk of
     # _OVERLAP_CHUNK_BLOCKS blocks x 2 lanes (the channels), the trial
@@ -581,10 +681,43 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
                 CodecState.zeros((2,), cuda), _pad_to_blocks(seq_t, geo, cb - 1, 1)[0][0].t().contiguous(),
                 bps, trials)
     seq_stream_ms = cuda_ms(lambda: fe.encode_stream_tm(*seq_args, warm_on_prev=True, blocks_before=cb), 3, warmup=1)
+    # the timed launch's first SEQ_CHECK_BLOCKS blocks against the plain
+    # version (on the host: it takes seconds a block) on the same carry
+    got_c, got_h, _ = fe.encode_stream_tm(*seq_args, warm_on_prev=True, blocks_before=cb)
+    k = SEQ_CHECK_BLOCKS
+    want_h, want_c, _ = fe.encode_stream_reference(
+        chunk[:k].cpu(), chunk_valid[:k].cpu(), bps, trials, carry=(CodecState.zeros((2,), "cpu"), seq_args[3].t().cpu()),
+        blocks_before=cb, need_carry=False)
+    seq_err = max(max_err(got_c[:k].transpose(1, 2), want_c), max_err(got_h[:k, 8], want_h.step_index),
+                  max_err(got_h[:k, 9], want_h.shift), max_err(got_h[:k, 4:8].transpose(1, 2), want_h.weight),
+                  max_err(got_h[:k, 0:4].transpose(1, 2), want_h.history))
+    check(seq_err == 0, f"aad_encode_stream != plain at the sequential shape: {seq_err}")
+    del got_c, got_h, want_h, want_c
     seq_live = torch.clamp(seq_args[1] - 4, 0, T)
     seq_steps = int((seq_live * (1 + trials)).sum()) + cb * 2 * T * (trials + 1)  # measures, warm-ups, emit
-    seq_stream_bound = bound(cb * nspb * 2 * 2 + nspb * 2 * 2 + 2 * 36 + cb * 2 * (T + 40),
-                             seq_steps * ENCODE_OPS_PER_STEP[bps])
+    # the paired schedule's loop, by pipe, and its latency bound: the chain
+    # of 2N passes a block (3 at trials 1), each sample-pass the loop's
+    # loop-carried path
+    seq_loop = sass_loop(PAIRED_SYMBOL, "LDS")
+    seq_samples = sample_loads(seq_loop)
+    check(seq_samples > 0, "no sample loads in the paired schedule's step loop")
+    seq_stream_bound, _ = loop_bound(cb * nspb * 2 * 2 + nspb * 2 * 2 + 2 * 36 + cb * 2 * (T + 40), seq_steps,
+                                     pipe_counts([op for _, op, _ in seq_loop], seq_samples))
+    seq_cycles, seq_chain = latency_line(seq_loop, seq_samples)
+    seq_chain_passes = cb * (3 if trials == 1 else 2 * trials) * T
+    seq_latency_ms = seq_chain_passes * seq_cycles / SM_CLOCK_HZ * 1e3
+
+    # the lane sweep of the warm-up schedule: 4 blocks of the signal, tiled
+    sweep = []
+    flat = pcm_t.reshape(-1)
+    for lanes_n in SWEEP_LANES:
+        need = 4 * lanes_n * nspb
+        x = flat.repeat(-(-need // flat.numel()))[:need].reshape(4, nspb, lanes_n)
+        sweep_args = (x, torch.full((4, lanes_n), nspb, dtype=torch.int32, device=cuda),
+                      CodecState.zeros((lanes_n,), cuda), x[-1].flip(0).contiguous(), bps, trials)
+        ms = cuda_ms(lambda: fe.encode_stream_tm(*sweep_args, warm_on_prev=True, blocks_before=4), 3, warmup=1)
+        sweep.append((lanes_n, ms))
+        del x, sweep_args
 
     # rates
     total = pcm.size
@@ -605,12 +738,23 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     print(f"[time] aad_encode_stream {L} lanes x 1 block of {nspb}, 4-bit trials {trials}, parallel: "
           f"kernel {stream_ms:.4f} ms, plain torch on the card {stream_plain_ms:.4f} ms, "
           f"bound {stream_bound[0]:.4f} ms ({stream_bound[1]}; {steps} sample-passes) ({card})")
+    print(f"[sass] aad_encode_stream serial schedule, 4-bit, measure: {sass_line(serial_sass, stream_pipe)}")
     print(f"[time] aad_encode_stream 2 lanes x {cb} blocks of {nspb}, trials {trials}, warm-up on the previous "
           f"block (the sequential path, {main['seq_launches'][fe.STREAM_KERNEL]} launches in {SEQ_SECONDS} s): "
           f"{seq_stream_ms:.4f} ms a launch, bound {seq_stream_bound[0]:.6f} ms ({seq_stream_bound[1]}; "
-          f"{seq_steps} sample-passes, {seq_stream_bound[0] / seq_stream_ms:.4%} of the bound) ({card})")
+          f"{seq_steps} sample-passes, {seq_stream_bound[0] / seq_stream_ms:.4%} of the bound; its first "
+          f"{SEQ_CHECK_BLOCKS} blocks == plain, bit-exact); latency bound "
+          f"{seq_latency_ms:.4f} ms (bound_by latency; {seq_chain_passes} sample-passes on the chain), "
+          f"{seq_latency_ms / seq_stream_ms:.1%} of it ({card})")
+    print(f"[sass] aad_encode_stream paired schedule, staged, 4-bit: {seq_chain}")
+    print(f"[sass] aad_encode_pass 4-bit, measure: {sass_line(pass_sass, pass_pipe)}; {pass_chain}")
     print(f"[time] aad_encode_pass 2 lanes x {T} codes, measure: kernel {pass_ms:.4f} ms, "
-          f"plain torch on the card {pass_plain_ms:.4f} ms, bound {pass_bound[0]:.6f} ms ({pass_bound[1]}) ({card})")
+          f"plain torch on the card {pass_plain_ms:.4f} ms, bound {pass_bound[0]:.6f} ms ({pass_bound[1]}); "
+          f"latency bound {pass_latency_ms:.4f} ms (bound_by latency; {T} steps on the chain), "
+          f"{pass_latency_ms / pass_ms:.1%} of it ({card})")
+    for lanes_n, ms in sweep:
+        print(f"[sweep] aad_encode_stream {lanes_n} lanes x 4 blocks of {nspb}, trials {trials}, warm-up on the "
+              f"previous block (the paired schedule): {ms:.4f} ms a launch ({card})")
     print(f"[time] device-resident parallel encode_payload_ondevice: {resident_ms:.4f} ms, "
           f"{total / (resident_ms / 1e3):.6e} samples/s ({card})")
     print(f"[time] transfer-inclusive parallel encode(): {e2e_s * 1e3:.4f} ms, {total / e2e_s:.6e} samples/s ({card})")
@@ -621,7 +765,7 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     return [
         {"name": fe.STREAM_KERNEL, "route": "cuda", "source": "aad_tpu_torch/csrc/encode.cu",
          "replaces": "aad_tpu/ops/pallas_encode_fused.py:1102",
-         "launches": par[fe.STREAM_KERNEL] + seq[fe.STREAM_KERNEL], "max_abs_err": max(stream_err, full_err),
+         "launches": par[fe.STREAM_KERNEL] + seq[fe.STREAM_KERNEL], "max_abs_err": max(stream_err, full_err, seq_err),
          "ms": stream_ms, "plain_ms": stream_plain_ms, "bound_ms": stream_bound[0], "bound_by": stream_bound[1],
          "library_ms": None},
         {"name": ep.PASS_KERNEL, "route": "cuda", "source": "aad_tpu_torch/csrc/encode.cu",

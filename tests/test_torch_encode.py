@@ -301,6 +301,39 @@ def test_plain_matches_fused_pallas_kernel(bps, trials, warm):
     np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
 
 
+@pytest.mark.parametrize("trials,stack,carried", [
+    (1, True, False), (1, False, True), (2, True, True), (2, False, False), (3, True, False), (3, False, True),
+])
+def test_plain_matches_pass_stacked_fused_pallas_kernel(monkeypatch, trials, stack, carried):
+    """The semantics of aad_encode_stream's paired trial schedule are those
+    of pass_stack: the plain engine == encode_stream_fused with the
+    pass-stacked trial search on and off, over three blocks (a stream head,
+    or a carry) with a ragged last one. A tone under noise, so that later
+    trials win on some lanes. The stack setting is read when the kernel is
+    traced, so each setting has a lane count of its own."""
+    from aad_tpu.ops import pallas_encode_fused as pef
+
+    monkeypatch.setenv("AAD_TPU_ENCODE_STACK", "1" if stack else "0")
+    rng = np.random.default_rng(80 + trials)
+    B, L, nspb = 3, 6 if stack else 7, 36
+    assert pef._use_pass_stack(trials, True, False, False, 1, 1, L) == stack
+    t = np.arange(B * nspb)
+    tone = 6000 * np.sin(t[None, :] / rng.uniform(3, 9, (L, 1)))
+    blocks = (tone + rng.normal(0, 400, tone.shape)).astype(np.int16).reshape(L, B, nspb).transpose(1, 0, 2)
+    blocks = np.ascontiguousarray(blocks)
+    valid = np.array([nspb, nspb, 19], dtype=np.int32)
+    kw, jkw = {}, {}
+    if carried:
+        st = _state(rng, (L,))
+        prev = (rng.normal(0, 3000, (L, nspb))).astype(np.int16)
+        kw = dict(carry=(st, torch.from_numpy(prev)), blocks_before=trials)
+        jkw = dict(carry=(_jstate(st), jnp.asarray(prev.astype(np.int32))), blocks_before=trials)
+    wh, wc, _ = pef.encode_stream_fused(jnp.asarray(blocks.astype(np.int32)), jnp.asarray(valid), 4, trials, **jkw)
+    gh, gc, _ = fused_encode.encode_stream(torch.from_numpy(blocks), torch.from_numpy(valid), 4, trials, **kw)
+    _assert_tree(gh, wh)
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+
+
 @pytest.mark.parametrize("emit", [False, True])
 def test_plain_pass_matches_per_pass_pallas_kernel(emit):
     """encode_pass's plain version == pallas_encode.encode_scan_tiles, one tile."""

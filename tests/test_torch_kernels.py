@@ -173,7 +173,7 @@ def _encode_lanes(seed, B, L, nspb):
     x = rng.integers(-32768, 32768, (B, L, nspb))
     x = np.where(rng.random(x.shape) < 0.5, rng.choice([-32768, 32767], x.shape), x).astype(np.int16)
     valid = rng.integers(0, nspb + 1, (B, L)).astype(np.int32)
-    valid[:, :5] = [0, 1, 3, 4, nspb]
+    valid[:, :5] = [0, 1, 3, 4, nspb][: min(L, 5)]
     state = CodecState.from_numpy((
         rng.integers(-32768, 32768, (L, 4)),
         rng.integers(-(2**31), 2**31 - 1, (L, 4), endpoint=True),
@@ -183,12 +183,26 @@ def _encode_lanes(seed, B, L, nspb):
     return torch.from_numpy(x), torch.from_numpy(valid), (state, prev)
 
 
+# (trials, warm_on_prev, blocks_before, emit_block_states, lanes, samples a block):
+# the paired schedule (trials > 0 with the warm-up) at trials 1-3, its
+# samples staged at up to 4,096 lanes (CTAs of 16 lanes at 30-sample
+# blocks, 8 at 992, 2 at 2948 and 3104) and read from device memory at
+# 4,099 (a wider launch, its last CTA ragged); the serial one at trials 0
+# and without the warm-up.
+STREAM_CASES = [
+    (0, True, 0, False, 333, 30), (1, True, 0, True, 333, 30), (2, True, 3, False, 333, 30),
+    (3, True, 1, True, 333, 30), (1, True, 1, False, 37, 2948), (2, True, 0, True, 45, 3104),
+    (1, True, 2, False, 2, 992),
+    (2, True, 2, True, 4099, 30), (3, True, 0, False, 4099, 30),
+    (2, False, 0, True, 333, 30), (3, False, 0, False, 333, 30),
+]
+
+
 @pytest.mark.parametrize("bps", [2, 3, 4])
-@pytest.mark.parametrize("trials,warm,blocks_before,emit", [
-    (0, True, 0, False), (1, True, 0, True), (2, True, 3, False), (2, False, 0, True), (3, False, 0, False),
-])
-def test_encode_stream_kernel_matches_plain(cuda, bps, trials, warm, blocks_before, emit):
-    blocks, valid, carry = _encode_lanes(bps * 31 + trials, 3, 333, 30)
+@pytest.mark.parametrize("trials,warm,blocks_before,emit,L,nspb", STREAM_CASES)
+def test_encode_stream_kernel_matches_plain(cuda, bps, trials, warm, blocks_before, emit, L, nspb):
+    """Valid counts 0-3, ragged and full on every block, and forged carries."""
+    blocks, valid, carry = _encode_lanes(bps * 31 + trials + L, 3, L, nspb)
     kw = dict(carry=carry, blocks_before=blocks_before, warm_on_prev=warm, emit_block_states=emit)
     want = fused_encode.encode_stream_reference(blocks, valid, bps, trials, **kw)
     before = dict(fused_encode.launches), dict(encode_pass.launches)
@@ -202,13 +216,29 @@ def test_encode_stream_kernel_matches_plain(cuda, bps, trials, warm, blocks_befo
     assert _same(tuple(got[2]), tuple(want[2])) if emit else _same(tuple(got[2][0]), tuple(want[2][0]))
 
 
+def test_encode_stream_serial_warm_up_matches_plain(cuda):
+    """A block whose speculative codes do not fit a CTA (more than 47,104
+    slots) takes the serial schedule with the warm-up; its valid counts are
+    short (a live head, and fewer than 4 samples), the warm-up full."""
+    nspb = 47_112
+    blocks, _, carry = _encode_lanes(5, 1, 2, nspb)
+    valid = torch.tensor([[10, 3]], dtype=torch.int32)
+    kw = dict(carry=carry, blocks_before=1, warm_on_prev=True, emit_block_states=True)
+    want = fused_encode.encode_stream_reference(blocks, valid, 4, 1, **kw)
+    kw["carry"] = (carry[0].to(cuda), carry[1].to(cuda))
+    got = fused_encode.encode_stream(blocks.to(cuda), valid.to(cuda), 4, 1, **kw)
+    torch.cuda.synchronize()
+    assert _same(tuple(got[0]), tuple(want[0])) and _same(got[1], want[1]) and _same(tuple(got[2]), tuple(want[2]))
+
+
 @pytest.mark.parametrize("bps", [2, 3, 4])
 @pytest.mark.parametrize("emit", [False, True])
-def test_encode_pass_kernel_matches_plain(cuda, bps, emit):
-    blocks, valid, (state, _) = _encode_lanes(bps + 7 * emit, 1, 1001, 44)
+@pytest.mark.parametrize("T", [44, 988])
+def test_encode_pass_kernel_matches_plain(cuda, bps, emit, T):
+    blocks, valid, (state, _) = _encode_lanes(bps + 7 * emit + T, 1, 1001, T)
     samples = blocks[0].t().contiguous()
-    lane_valid = valid[0].clone()  # 0..44 with the four head samples: 0..40 live slots of 44
-    lane_valid[5:9] = torch.tensor([48, 49, 100, -3])  # every slot live, and a negative count
+    lane_valid = valid[0].clone()  # 0..T with the four head samples: 0..T-4 live slots of T
+    lane_valid[5:9] = torch.tensor([T + 4, T + 5, T + 56, -3])  # every slot live, and a negative count
     want = encode_pass.encode_pass_reference(samples, state, lane_valid, bps, emit)
     got = encode_pass.encode_pass(samples.to(cuda), state.to(cuda), lane_valid.to(cuda), bps, emit)
     torch.cuda.synchronize()
