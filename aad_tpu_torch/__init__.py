@@ -16,6 +16,8 @@ Public surface:
                                          one kernel launch per geometry
     StreamingDecoder(device, engine)  -> push bytes, get samples per whole block
     encode(pcm, config, device="cuda", parallel_blocks=False, ...) -> .aad bytes
+    encode_batch(streams, config, device="cuda", ...) -> [.aad bytes], a pile of
+                                         streams on the kernel's lanes
     Encoder.from_config(config, device, ...) -> reusable encoder;
                                          encode_payload_ondevice stays on device
     StreamingEncoder(config, device, total_samples) -> push PCM chunks, get bytes
@@ -24,6 +26,8 @@ Public surface:
     encode_file(wav, aad, device=...) / decode_file(aad, wav, device=, engine=)
     decode_header / encode_header / validate_header / HeaderInfo
     compute_block_geometry / geometry_from_header / calculate_block_size
+    QualityStats / quality_stats / roundtrip_stats / self_check (utils.quality)
+    python -m aad_tpu_torch.cli       -> the reference CLI's six modes
 
 ``device="cuda"`` runs the CUDA kernels (built with nvcc at first use);
 ``device="cpu"`` runs their plain torch versions. The decode ``engine`` is
@@ -32,6 +36,7 @@ Public surface:
 """
 
 from .codec.batch import decode_batch
+from .codec.batch_encode import encode_batch
 from .codec.decoder import Decoder, decode
 from .codec.encoder import EncodeConfig, Encoder, encode
 from .codec.streaming import StreamingDecoder, StreamingEncoder
@@ -65,6 +70,7 @@ from .format.geometry import (
 )
 from .format.header import HeaderInfo, decode_header, encode_header, validate_header
 from .io import decode_file, encode_file
+from .utils.quality import QualityStats, quality_stats, roundtrip_stats, self_check
 
 __version__ = "0.1.0"
 
@@ -89,6 +95,7 @@ __all__ = [
     "MAX_BITS_PER_SAMPLE",
     "MAX_NUM_CHANNELS",
     "MIN_BITS_PER_SAMPLE",
+    "QualityStats",
     "StreamingDecoder",
     "StreamingEncoder",
     "calculate_block_size",
@@ -98,11 +105,15 @@ __all__ = [
     "decode_file",
     "decode_header",
     "encode",
+    "encode_batch",
     "encode_file",
     "encode_header",
     "encoded_stream_size",
     "geometry_from_header",
     "lenient_prefix",
+    "quality_stats",
+    "roundtrip_stats",
+    "self_check",
     "transcode",
     "validate_header",
 ]

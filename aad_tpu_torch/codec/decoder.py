@@ -74,6 +74,7 @@ from ..ops import cseman as cs
 from ..ops.decode import compute_qdiffs_prefix
 from ..ops.fused_decode import decode_lanes, stepsize_corrections
 from ..ops.lms import lms_lanes
+from ..utils import debug
 from .device import resolve_device
 from .result import InsufficientDataError, InvalidArgumentError
 
@@ -168,8 +169,12 @@ class Decoder:
         return torch.from_numpy(payload).to(self.device)
 
     def frame(self, payload) -> FramedStream:
-        """Framing of the post-header payload bytes, on the decoder's device."""
-        return frame_stream(self._to_device(payload), self.header, self.geometry)
+        """Framing of the post-header payload bytes, on the decoder's device;
+        in debug mode, its invariants checked (``utils.debug``)."""
+        framed = frame_stream(self._to_device(payload), self.header, self.geometry)
+        if debug.enabled():
+            debug.check_framed_stream(framed.states, framed.codes, self.geometry)
+        return framed
 
     def decode_framed(self, framed: FramedStream) -> torch.Tensor:
         """Decode a pre-framed stream; returns (C, num_samples) int32."""

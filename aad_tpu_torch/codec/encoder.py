@@ -11,9 +11,11 @@ The pipeline (reference behaviour: src/aad_encoder.c:814-891):
                --D2H----> bytes
 
 In the sequential mode the lanes are the channels and the blocks run in
-order inside the kernel. ``parallel_blocks=True`` selects the
-block-independent mode (``ops.encode.encode_blocks_parallel``): the blocks
-join the lanes, so every block of the stream encodes at once.
+order inside the kernel (a long stream in chunks that chain the carry).
+``parallel_blocks=True`` selects the block-independent mode
+(``ops.encode.encode_blocks_parallel``): the blocks join the lanes, so every
+block of the stream encodes at once. Both run in :func:`encode_blocks`,
+which ``codec.batch_encode`` runs on a pile's (streams, channels) lanes.
 
 ``device`` is the only switch: ``"cuda"`` launches the kernels, ``"cpu"``
 runs their plain torch versions. The bytes are those of
@@ -25,8 +27,12 @@ payload is assembled as bytes on the device), the channel-major folded
 lanes of the parallel mode (a (8, 128) tiling concern), and
 ``_bucket_blocks`` (jit reuse). Not yet ported: the native C++ engine and
 ``encode()``'s ``auto`` dispatch to it (the ``device`` argument picks the
-engine here), ``batch_encode``, and the CUDA-stream overlap of the chunked
-sequential encode's transfers. Streaming encode is ``codec.streaming``.
+engine here), and the CUDA-stream overlap of the chunked sequential
+encode's transfers. Streaming encode is ``codec.streaming``, a pile of
+streams ``codec.batch_encode``.
+
+PCM outside the int16 range raises here. Such input is outside the
+contract of both packages, and ``aad_tpu``'s engines disagree on it.
 """
 
 from __future__ import annotations
@@ -45,18 +51,25 @@ from ..constants import (
     MAX_NUM_CHANNELS,
     block_header_size,
 )
-from ..format.framing import BlockStates, assemble_stream, build_block_headers
-from ..format.geometry import BlockGeometry, compute_block_geometry, num_blocks_for
+from ..format.framing import BlockStates, build_block_headers
+from ..format.geometry import (
+    BlockGeometry,
+    compute_block_geometry,
+    encoded_block_bytes,
+    last_block_valid_samples,
+    num_blocks_for,
+)
 from ..format.header import HeaderInfo, encode_header, validate_header
+from ..ops.bitpack import pack_codes
 from ..ops.encode import BlockHeaderFields, encode_blocks_parallel, lr_to_ms
 from ..ops.fused_encode import encode_stream
 from ..ops.transitions import CodecState
 from .device import resolve_device
 from .result import InvalidArgumentError, InvalidFormatError
 
-# The sequential encode of a stream of at least _OVERLAP_MIN_BLOCKS blocks
-# runs in chunks of _OVERLAP_CHUNK_BLOCKS blocks that chain the predictor
-# carry, as aad_tpu's _encode_sequential_overlap does (same constants,
+# The sequential encode of at least _OVERLAP_MIN_BLOCKS blocks runs in
+# chunks of _OVERLAP_CHUNK_BLOCKS blocks that chain the predictor carry, as
+# aad_tpu's _encode_sequential_overlap does (same constants,
 # aad_tpu/codec/encoder.py:271-272). The bytes equal the one-shot encode.
 _OVERLAP_CHUNK_BLOCKS = 64
 _OVERLAP_MIN_BLOCKS = 128
@@ -108,6 +121,20 @@ class EncodeConfig:
         return compute_block_geometry(self.max_block_size, self.num_channels, self.bits_per_sample)
 
 
+def as_int16(pcm: np.ndarray) -> np.ndarray:
+    """int16-valued PCM as int16, truncated toward zero as ``astype`` does. A
+    sample outside the int16 range, or one that is not finite, raises
+    InvalidFormatError: the reference asserts the range
+    (src/aad_encoder.c:612), and the kernels read int16 samples."""
+    if pcm.dtype == np.int16:
+        return pcm
+    if pcm.size:
+        whole = np.trunc(pcm) if pcm.dtype.kind == "f" else pcm
+        if not np.isfinite(whole).all() or whole.min() < INT16_MIN or whole.max() > INT16_MAX:
+            raise InvalidFormatError("encoder input exceeds int16 range")
+    return pcm.astype(np.int16)
+
+
 def _pad_to_blocks(pcm: torch.Tensor, geo: BlockGeometry, first_block: int, num_blocks: int):
     """Blocks [first_block, first_block + num_blocks) of (C, N) PCM.
 
@@ -125,10 +152,72 @@ def _pad_to_blocks(pcm: torch.Tensor, geo: BlockGeometry, first_block: int, num_
     return buf.reshape(C, num_blocks, nspb).transpose(0, 1), valid
 
 
-def _payload(headers: BlockHeaderFields, codes: torch.Tensor, geo: BlockGeometry, num_samples: int) -> torch.Tensor:
-    """Header fields + (B, C, T) codes -> payload bytes, on their device."""
+def payload_size(geo: BlockGeometry, num_samples: int) -> int:
+    """Bytes of a stream's payload: whole blocks, the last one cut to the
+    interleave units that cover its valid samples (as ``assemble_stream``)."""
+    nb = num_blocks_for(num_samples, geo.num_samples_per_block)
+    tail = encoded_block_bytes(geo, last_block_valid_samples(num_samples, geo.num_samples_per_block))
+    return (nb - 1) * geo.block_size + tail
+
+
+def _block_bytes(headers: BlockHeaderFields, codes: torch.Tensor, geo: BlockGeometry) -> torch.Tensor:
+    """Header fields + (B, *streams, C, T) codes -> (B, *streams, block_size) whole blocks."""
     states = BlockStates(headers.step_index, headers.weight, headers.history)
-    return assemble_stream(build_block_headers(states, headers.shift, geo), codes, geo, num_samples)
+    return torch.cat([build_block_headers(states, headers.shift, geo), pack_codes(codes, geo)], dim=-1)
+
+
+def encode_blocks(
+    blocks: torch.Tensor,
+    valid: torch.Tensor,
+    config: EncodeConfig,
+    parallel_blocks: bool = False,
+    parallel_chunk_blocks: int = 1,
+    parallel_warm_passes: int = 0,
+) -> torch.Tensor:
+    """The encode of every lane's blocks: (B, *streams, C, nspb) int16 LR
+    blocks, zero past each lane's end, and ``valid`` samples per (block,
+    lane), (B,) or broadcastable to (B, *streams, C) -> (B, *streams, block_size)
+    uint8, each block's header and packed codes. One stream (``Encoder``)
+    or a pile of them (``encode_batch``).
+
+    Mid/side is applied here, per chunk. The sequential mode is one launch
+    of kernel 3 (``ops.fused_encode.encode_stream``), or from
+    ``_OVERLAP_MIN_BLOCKS`` blocks on, chunks of ``_OVERLAP_CHUNK_BLOCKS``
+    blocks that chain the carry (state and last block; reference state chain
+    src/aad_encoder.c:470-562, 814-891): a chunk takes one launch of kernel 3
+    and, but for the last, one of kernel 4 to rebuild the carry; the codes in
+    flight stay one chunk's. ``parallel_blocks=True`` runs
+    ``ops.encode.encode_blocks_parallel``.
+    """
+    geo = config.geometry()
+    bps, trials = config.bits_per_sample, config.num_encode_trials
+
+    def ms(x: torch.Tensor) -> torch.Tensor:
+        # per sample, and zero padding maps to zero, so the transform of the
+        # padded blocks equals the reference's per-block transform
+        # (reference: src/aad_encoder.c:596-603)
+        return lr_to_ms(x).to(torch.int16) if config.ch_process_method == CH_PROCESS_MS else x
+
+    B = blocks.shape[0]
+    if parallel_blocks:
+        return _block_bytes(*encode_blocks_parallel(
+            ms(blocks), valid, bps, trials,
+            chunk_blocks=parallel_chunk_blocks, warm_passes=parallel_warm_passes, stream=encode_stream,
+        ), geo)
+    if B < _OVERLAP_MIN_BLOCKS:
+        return _block_bytes(*encode_stream(ms(blocks), valid, bps, trials, need_carry=False)[:2], geo)
+    lanes = blocks.shape[1:-1]
+    device = blocks.device
+    out = torch.empty((B, *lanes[:-1], geo.block_size), dtype=torch.uint8, device=device)
+    carry = (CodecState.zeros(lanes, device), torch.zeros(blocks.shape[1:], dtype=torch.int16, device=device))
+    for b0 in range(0, B, _OVERLAP_CHUNK_BLOCKS):
+        count = min(_OVERLAP_CHUNK_BLOCKS, B - b0)
+        headers, codes, carry = encode_stream(
+            ms(blocks[b0 : b0 + count]), valid[b0 : b0 + count], bps, trials,
+            carry=carry, blocks_before=b0, need_carry=b0 + count < B,
+        )
+        out[b0 : b0 + count] = _block_bytes(headers, codes, geo)
+    return out
 
 
 @dataclasses.dataclass
@@ -176,9 +265,8 @@ class Encoder:
     def encode(self, pcm) -> bytes:
         """Encode (C, N) int16-valued PCM into a complete .aad stream.
 
-        PCM outside the int16 range raises InvalidFormatError (the
-        reference asserts the range, src/aad_encoder.c:612; ``aad_tpu``
-        checks it in its debug mode).
+        PCM outside the int16 range raises InvalidFormatError (see
+        :func:`as_int16`; ``aad_tpu`` checks it in its debug mode only).
         """
         cfg = self.config
         pcm = np.asarray(pcm)
@@ -188,18 +276,8 @@ class Encoder:
         # header_for -> encode_header re-validates, with the reference's
         # stricter header-time checks (num_samples > 0, bps >= 2)
         file_header = encode_header(cfg.header_for(num_samples))
-        if pcm.dtype != np.int16:
-            pcm = pcm.astype(np.int32)
-            if pcm.min() < INT16_MIN or pcm.max() > INT16_MAX:
-                raise InvalidFormatError("encoder input exceeds int16 range")
-            pcm = pcm.astype(np.int16)
-        pcm = torch.from_numpy(np.ascontiguousarray(pcm)).to(self.device)
-        nblocks = num_blocks_for(num_samples, self.geometry.num_samples_per_block)
-        if not self.parallel_blocks and nblocks >= _OVERLAP_MIN_BLOCKS:
-            payload = self._encode_sequential_chunked(pcm)
-        else:
-            payload = self.encode_payload_ondevice(pcm)
-        return file_header + payload.cpu().numpy().tobytes()
+        pcm = torch.from_numpy(np.ascontiguousarray(as_int16(pcm))).to(self.device)
+        return file_header + self.encode_payload_ondevice(pcm).cpu().numpy().tobytes()
 
     def _check_pcm(self, pcm) -> torch.Tensor:
         if not isinstance(pcm, torch.Tensor) or pcm.dtype != torch.int16 or pcm.dim() != 2:
@@ -210,55 +288,17 @@ class Encoder:
         return pcm.to(self.device)
 
     def encode_payload_ondevice(self, pcm: torch.Tensor) -> torch.Tensor:
-        """The whole encode on the device, in one shot: (C, N) int16 PCM ->
-        the post-header payload as a uint8 tensor on the encoder's device."""
+        """The whole encode on the device: (C, N) int16 PCM -> the
+        post-header payload as a uint8 tensor on the encoder's device."""
         pcm = self._check_pcm(pcm)
-        cfg, geo = self.config, self.geometry
+        geo = self.geometry
         num_samples = pcm.shape[1]
         blocks, valid = _pad_to_blocks(pcm, geo, 0, num_blocks_for(num_samples, geo.num_samples_per_block))
-        if cfg.ch_process_method == CH_PROCESS_MS:
-            # per sample, and zero padding maps to zero, so the transform of
-            # the padded blocks equals the reference's per-block transform
-            # (reference: src/aad_encoder.c:596-603)
-            blocks = lr_to_ms(blocks).to(torch.int16)
-        if self.parallel_blocks:
-            headers, codes = encode_blocks_parallel(
-                blocks, valid, cfg.bits_per_sample, cfg.num_encode_trials,
-                chunk_blocks=self.parallel_chunk_blocks, warm_passes=self.parallel_warm_passes,
-                stream=encode_stream,
-            )
-        else:
-            headers, codes, _ = encode_stream(
-                blocks, valid, cfg.bits_per_sample, cfg.num_encode_trials, need_carry=False
-            )
-        return _payload(headers, codes, geo, num_samples)
-
-    def _encode_sequential_chunked(self, pcm: torch.Tensor) -> torch.Tensor:
-        """The sequential encode in chunks of ``_OVERLAP_CHUNK_BLOCKS``
-        blocks, each chunk starting from the previous chunk's carry (state
-        and last block), so the bytes equal the one-shot encode
-        (``aad_tpu``'s ``_encode_sequential_overlap``; reference state chain
-        src/aad_encoder.c:470-562, 814-891)."""
-        cfg, geo = self.config, self.geometry
-        C, num_samples = pcm.shape
-        nspb = geo.num_samples_per_block
-        nblocks = num_blocks_for(num_samples, nspb)
-        cb = _OVERLAP_CHUNK_BLOCKS
-        carry = (CodecState.zeros((C,), pcm.device), torch.zeros((C, nspb), dtype=torch.int16, device=pcm.device))
-        parts = []
-        for b0 in range(0, nblocks, cb):
-            blocks, valid = _pad_to_blocks(pcm, geo, b0, cb)
-            if cfg.ch_process_method == CH_PROCESS_MS:
-                blocks = lr_to_ms(blocks).to(torch.int16)
-            headers, codes, carry = encode_stream(
-                blocks, valid, cfg.bits_per_sample, cfg.num_encode_trials,
-                carry=carry, blocks_before=b0, need_carry=True,
-            )
-            real = min(cb, nblocks - b0)
-            parts.append((BlockHeaderFields(*(f[:real] for f in headers)), codes[:real]))
-        headers = BlockHeaderFields(*(torch.cat(f) for f in zip(*(h for h, _ in parts))))
-        codes = torch.cat([c for _, c in parts])
-        return _payload(headers, codes, geo, num_samples)
+        rows = encode_blocks(
+            blocks, valid, self.config, self.parallel_blocks,
+            self.parallel_chunk_blocks, self.parallel_warm_passes,
+        )
+        return rows.reshape(-1)[: payload_size(geo, num_samples)]
 
 
 def encode(

@@ -29,15 +29,15 @@ import collections
 import numpy as np
 import torch
 
-from ..constants import CH_PROCESS_MS, FILE_HEADER_SIZE, INT16_MAX, INT16_MIN
+from ..constants import CH_PROCESS_MS, FILE_HEADER_SIZE
 from ..format.geometry import encoded_block_bytes, geometry_from_header, num_blocks_for
 from ..format.header import HeaderInfo, decode_header, encode_header, validate_header
 from ..ops.encode import lr_to_ms
 from ..ops.fused_encode import encode_stream
 from .decoder import Decoder, resolve_engine
 from .device import resolve_device
-from .encoder import EncodeConfig, _pad_to_blocks, _payload
-from .result import InvalidArgumentError, InvalidFormatError
+from .encoder import EncodeConfig, _block_bytes, _pad_to_blocks, as_int16, payload_size
+from .result import InvalidArgumentError
 
 
 class StreamingEncoder:
@@ -67,11 +67,7 @@ class StreamingEncoder:
         pcm = np.asarray(pcm)
         if pcm.ndim != 2 or pcm.shape[0] != self.config.num_channels:
             raise InvalidArgumentError(f"chunk must be ({self.config.num_channels}, n)")
-        if pcm.dtype != np.int16:
-            pcm = pcm.astype(np.int32)
-            if pcm.size and (pcm.min() < INT16_MIN or pcm.max() > INT16_MAX):
-                raise InvalidFormatError("encoder input exceeds int16 range")
-        self._buffer = np.concatenate([self._buffer, pcm.astype(np.int16)], axis=1)
+        self._buffer = np.concatenate([self._buffer, as_int16(pcm)], axis=1)
         nspb = self.geometry.num_samples_per_block
         whole = self._buffer.shape[1] // nspb
         if whole == 0:
@@ -117,7 +113,7 @@ class StreamingEncoder:
         )
         self._blocks_done += blocks.shape[0]
         self._samples_done += n
-        return _payload(headers, codes, geo, n).cpu().numpy().tobytes()
+        return _block_bytes(headers, codes, geo).reshape(-1)[: payload_size(geo, n)].cpu().numpy().tobytes()
 
 
 class _ByteFIFO:

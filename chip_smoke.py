@@ -5,11 +5,14 @@
 
 Run from the repository root on a machine with a CUDA card (written for an
 H100), nvcc and PyTorch. It imports nothing of JAX or ``aad_tpu``. Phases, in
-order; nothing is caught, so any failure exits non-zero:
+order (after each, the seconds since the start); nothing is caught, so any
+failure exits non-zero:
 
 1. device: name, power limit and toolchain;
 2. build: the CUDA kernels, from ``aad_tpu_torch/csrc`` (timed);
-3. probe: the step-size probe kernel reads exactly ``STEPSIZE_TABLE``;
+3. probe: the step-size probe kernel reads exactly ``STEPSIZE_TABLE``; and
+   the launch floor, a one-element torch op timed by CUDA events over 1,000
+   launches, against which phase 6 holds the probe;
 4. each decode kernel against its plain torch version, bit for bit: bps
    2/3/4, (B, C, T) codes with C = 1 and 2, lane counts that are not
    multiples of the 64-lane CTA, T = 1, T + 4 odd or not a multiple of 8, T
@@ -39,7 +42,7 @@ order; nothing is caught, so any failure exits non-zero:
    parallel_blocks=True)`` with trials 2, and with chunks of 4 and a warm
    pass; a 60-second stream through the sequential, chunked
    ``encode(..., device="cuda")`` (2,904 blocks, 46 chunks, one
-   ``aad_encode_pass`` per chunk), against the one-shot encode and the
+   ``aad_encode_pass`` between two), against the one-shot encode and the
    plain encode of an 8-block prefix; the mid/side variant and a mono 3-bit
    stream with a ragged tail; each bit-exact against ``device="cpu"``, with
    launch counts; and a round trip of the parallel stream through the
@@ -79,7 +82,24 @@ order; nothing is caught, so any failure exits non-zero:
    the pile and the streaming decode and encode in samples/s, and the
    device time by kernel of both resident decodes under ``torch.profiler``,
    with their time-major copies of the codes (the two-phase decode's phase A
-   needs one; the fused decode none).
+   needs one; the fused decode none);
+13. ``encode_batch`` at full width: 2,048 stereo 4-bit streams of 1 to 4 s
+   cut from the encode signal (4,096 lanes, the chunked carry), 16 of them
+   held against their solo ``encode(..., device="cuda")``, with launch
+   counts; the pile's chunked launches against their plain versions at its
+   shapes: ``aad_encode_pass`` over chunk 0's last block at 4,096 lanes
+   (the carry), and ``aad_encode_stream`` on chunk 1 from that carry, its
+   first 8 blocks; against ``device="cpu"`` at a few blocks a stream: the 2,048-
+   stream pile, 2,049 streams (4,098 lanes, past kernel 3's staging gate),
+   mid/side, mono 3-bit and the parallel mode with chunks of 4 and a warm
+   pass; the host-clock rate of piles of 1, 32, 512 and 2,048 two-second
+   streams beside one stream's sequential ``encode()``, and the device time
+   by kernel of the 2,048-stream call under ``torch.profiler``;
+14. ``python -m aad_tpu_torch.cli`` in its six modes (and ``-d`` under
+   ``AAD_TPU_ENGINE=pallas``) as subprocesses on a 10-second stereo WAV,
+   against ``encode``/``decode(..., device="cuda")``; ``self_check()`` on
+   the card; ``measure_throughput`` of the resident fused decode beside
+   phase 6's CUDA-event time of the same call.
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -89,11 +109,17 @@ its bound), and the card's name and power limit. The last line is
 
 from __future__ import annotations
 
+import contextlib
+import cProfile
 import functools
 import importlib.util
+import io
 import json
+import os
 import pathlib
+import pstats
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +138,14 @@ PREFIX_BLOCKS = 8
 SEQ_CHECK_BLOCKS = 8  # blocks of kernel 3's sequential-shape launch held against the plain version
 STREAM_PUSH = 1_000_003  # bytes a StreamingDecoder push
 STREAM_CHUNKS = (123_457, 50_000, 991, 200_003)  # samples/ch a StreamingEncoder push, in turn
+FLOOR_ITERS = 1000  # launches of a one-element op, the launch floor
+PILE_STREAMS = 2048  # encode_batch's full-width pile: 4,096 lanes, kernel 3's staging gate
+PILE_SECONDS = (1, 4)  # its streams' lengths, drawn from the seed
+PILE_CHECKS = 12  # its streams drawn by seed held against their solo encode, beside 4 chosen
+PILE_SIZES = (1, 32, 512, 2048)  # streams a timed pile
+PILE_TIME_SECONDS = 2  # each timed stream's length
+CLI_SECONDS = 10  # the CLI's WAV
+ROOT = pathlib.Path(__file__).resolve().parent
 
 # The least time the card could take (H100 SXM, NVIDIA's data sheet and the
 # Hopper white paper): HBM at 3.35 TB/s, and instructions on 132 SMs at the
@@ -276,6 +310,14 @@ def sass_line(per_sample: dict, pipe: str) -> str:
             + f" a sample; the busiest pipe against its rate: {pipe}")
 
 
+T_START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The seconds since the script started, at the end of a phase."""
+    print(f"[phase] {phase} done at {time.perf_counter() - T_START:.1f} s")
+
+
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -316,9 +358,10 @@ def bench_stream(num_samples, nch=2, bps=4, ms=False, seed=SEED, max_block_size=
     return at.encode_header(header) + payload.numpy().tobytes(), header
 
 
-def profile(label, fn, iters, time_major=None):
+def profile(label, fn, iters, time_major=None, host_rows=0):
     """Print the device time by kernel of ``fn`` under torch.profiler, per
-    call, beside its CUDA-event time without the profiler.
+    call, beside its CUDA-event time without the profiler; with
+    ``host_rows``, also that many host operations by their own host time.
 
     With ``time_major=(T, L)`` it also counts, per call, the copies that
     make a (T, ...) tensor of T * L elements: the time-major relayout of the
@@ -345,6 +388,15 @@ def profile(label, fn, iters, time_major=None):
           f"{busy:.4f} ms a call of device time under it, {len(rows)} kernels")
     for ms, count, name in rows[:10]:
         print(f"[profile]   {ms:.4f} ms x{count:g} {name[:100]}")
+    host = sorted(
+        ((e.self_cpu_time_total / 1e3 / iters, e.count / iters, e.key)
+         for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+        reverse=True,
+    )
+    if host_rows:
+        print(f"[profile]   host: {sum(r[0] for r in host):.4f} ms a call of host time in operations under it")
+    for ms, count, name in host[:host_rows]:
+        print(f"[profile]   host {ms:.4f} ms x{count:g} {name[:100]}")
     if time_major is None:
         return None
     T, L = time_major
@@ -525,6 +577,20 @@ def encode_kernel_checks(cuda) -> tuple[int, int]:
     return stream_err, pass_err
 
 
+@contextlib.contextmanager
+def one_launch():
+    """The sequential encode in one launch of kernel 3 at any length: the
+    block count from which it runs in chunks set out of reach."""
+    import aad_tpu_torch.codec.encoder as enc_mod
+
+    was = enc_mod._OVERLAP_MIN_BLOCKS
+    enc_mod._OVERLAP_MIN_BLOCKS = 1 << 62
+    try:
+        yield
+    finally:
+        enc_mod._OVERLAP_MIN_BLOCKS = was
+
+
 def encode_main_path(cuda) -> dict:
     """Phase 8: the encode main path at full width, CUDA against CPU."""
     import torch
@@ -578,9 +644,10 @@ def encode_main_path(cuda) -> dict:
     seq = at.encode(seq_pcm, cfg, device="cuda")
     seq_s = time.perf_counter() - t0
     seq_launches = counts()
-    check(seq_launches == {fe.STREAM_KERNEL: chunks, ep.PASS_KERNEL: chunks},
-          f"sequential launches {seq_launches}, want {chunks} of each")
-    one = at.Encoder.from_config(cfg, device="cuda").encode_payload_ondevice(torch.from_numpy(seq_pcm).to(cuda))
+    check(seq_launches == {fe.STREAM_KERNEL: chunks, ep.PASS_KERNEL: chunks - 1},
+          f"sequential launches {seq_launches}, want {chunks} and {chunks - 1}")
+    with one_launch():
+        one = at.Encoder.from_config(cfg, device="cuda").encode_payload_ondevice(torch.from_numpy(seq_pcm).to(cuda))
     check(one.cpu().numpy().tobytes() == seq[at.FILE_HEADER_SIZE:], "chunked sequential != one-shot")
     prefix = at.encode(seq_pcm[:, : PREFIX_BLOCKS * nspb], cfg, device="cpu")
     head = at.FILE_HEADER_SIZE
@@ -1055,6 +1122,242 @@ def slice_times(cuda, card, bench, slice_run, lms_err) -> dict:
             "bound_ms": lms_bound[0], "bound_by": lms_bound[1], "library_ms": None}
 
 
+@contextlib.contextmanager
+def cpu_threads(n):
+    """torch's CPU ops on ``n`` threads inside the block: the plain encode
+    engine's ops on a few thousand lanes run faster on one thread than
+    spread over several."""
+    import torch
+
+    was = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
+
+
+def pile_streams(pcm, lengths, seed) -> list[np.ndarray]:
+    """Contiguous streams cut from the (C, N) encode signal, one a length,
+    at offsets drawn from ``seed``: a pile of separate signals."""
+    rng = np.random.default_rng(seed)
+    offsets = rng.integers(0, pcm.shape[1] - max(lengths) + 1, len(lengths))
+    return [np.ascontiguousarray(pcm[:, o : o + n]) for o, n in zip(offsets, lengths)]
+
+
+def batch_encode_phase(cuda, card, main) -> dict:
+    """Phase 13: encode_batch on the card: the full-width pile against solo
+    encodes, exactness cases against the CPU, and times."""
+    import torch
+    import aad_tpu_torch as at
+    from aad_tpu_torch.codec.batch_encode import _stage
+    from aad_tpu_torch.codec.encoder import _OVERLAP_CHUNK_BLOCKS, _OVERLAP_MIN_BLOCKS
+    from aad_tpu_torch.ops import encode_pass as ep, fused_encode as fe
+    from aad_tpu_torch.ops.transitions import CodecState
+
+    cfg, pcm = main["cfg"], main["pcm"]
+    nspb = cfg.geometry().num_samples_per_block
+    T = nspb - 4
+    rng = np.random.default_rng(SEED + 6)
+
+    # (a) the full-width pile: 2,048 stereo streams of 1 to 4 s, sequential
+    lengths = rng.integers(PILE_SECONDS[0] * RATE, PILE_SECONDS[1] * RATE + 1, PILE_STREAMS)
+    lengths[[1, -2]] = PILE_SECONDS[1] * RATE, PILE_SECONDS[0] * RATE  # the chunked path; 16 distinct checks
+    pile = pile_streams(pcm, lengths, SEED + 7)
+    nblocks = -(-int(lengths.max()) // nspb)
+    chunks = -(-nblocks // _OVERLAP_CHUNK_BLOCKS)
+    check(nblocks >= _OVERLAP_MIN_BLOCKS, "the pile does not reach the chunked path")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = at.encode_batch(pile, cfg, device="cuda")
+    first_s = time.perf_counter() - t0
+    counts = {k: v for k, v in all_launches().items() if v}
+    check(counts == {fe.STREAM_KERNEL: chunks, ep.PASS_KERNEL: chunks - 1}, f"pile launches {counts}")
+    picks = {int(lengths.argmin()), int(lengths.argmax()), 0, PILE_STREAMS - 1}
+    picks |= set(rng.choice(np.setdiff1d(np.arange(PILE_STREAMS), list(picks)), PILE_CHECKS, replace=False).tolist())
+    check(len(picks) == PILE_CHECKS + 4, f"pile checks {sorted(picks)}")
+    for i in sorted(picks):
+        check(out[i] == at.encode(pile[i], cfg, device="cuda"), f"pile stream {i} != its solo encode")
+    samples = int(lengths.sum()) * 2
+    print(f"[batch] encode_batch of {PILE_STREAMS} stereo 4-bit streams of {PILE_SECONDS[0]}-{PILE_SECONDS[1]} s "
+          f"({2 * PILE_STREAMS} lanes, {nblocks} blocks in {chunks} chunks, {samples} samples): streams "
+          f"{sorted(picks)} == their solo encode(device='cuda'); launches {counts}; first call {first_s:.3f} s")
+    del out
+
+    # (a') the pile's chunked launches against their plain versions, at its
+    # shapes: chunk 0 on the card gives the carry, kernel 4's pass over its
+    # last block at 4,096 lanes; then kernel 3 on chunk 1 from that carry
+    cb, L = _OVERLAP_CHUNK_BLOCKS, 2 * PILE_STREAMS
+    bps, trials = cfg.bits_per_sample, cfg.num_encode_trials
+    blocks = _stage(pile, nblocks * nspb, cuda).reshape(PILE_STREAMS, 2, nblocks, nspb).permute(2, 0, 1, 3)
+    starts = torch.arange(nblocks, device=cuda)[:, None] * nspb
+    valid = torch.clamp(torch.as_tensor(lengths, device=cuda)[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
+    head, _, carry = fe.encode_stream(blocks[:cb], valid[:cb], bps, trials, need_carry=True)
+    seeded = CodecState(history=head.history[-1].reshape(L, 4).contiguous(),
+                        weight=head.weight[-1].reshape(L, 4).contiguous(),
+                        step_index=head.step_index[-1].reshape(L).contiguous())
+    pass_args = (blocks[cb - 1].reshape(L, nspb)[:, 4:].t().contiguous(), seeded,
+                 torch.full((L,), nspb, dtype=torch.int32, device=cuda), bps)
+    got_pass, want_pass = ep.encode_pass(*pass_args), ep.encode_pass_reference(*pass_args)  # plain, on the card
+    pass_err = max(max_err(tuple(got_pass[0]), tuple(want_pass[0])), max_err(got_pass[2], want_pass[2]))
+    check(pass_err == 0, f"aad_encode_pass != plain at the pile's carry shape: {pass_err}")
+    check(max_err(tuple(carry[0].map(lambda a: a.reshape(L, *a.shape[2:]))), tuple(want_pass[0])) == 0,
+          "the pile's carry != the plain pass over chunk 0's last block")
+    got_h, got_c, _ = fe.encode_stream(blocks[cb : 2 * cb], valid[cb : 2 * cb], bps, trials,
+                                       carry=carry, blocks_before=cb, need_carry=False)
+    k = SEQ_CHECK_BLOCKS
+    with cpu_threads(1):
+        want_h, want_c, _ = fe.encode_stream_reference(
+            blocks[cb : cb + k].cpu(), valid[cb : cb + k].cpu(), bps, trials,
+            carry=(carry[0].map(lambda a: a.cpu()), carry[1].cpu()), blocks_before=cb, need_carry=False)
+    stream_err = max(max_err(got_c[:k], want_c), max_err(tuple(f[:k] for f in got_h), tuple(want_h)))
+    check(stream_err == 0, f"aad_encode_stream != plain on the pile's chunk 1: {stream_err}")
+    print(f"[kernel-vs-plain] the pile's chunked launches: aad_encode_pass {T} codes x {L} lanes over chunk 0's "
+          f"last block == plain (on the card), and == the carry encode_stream built; aad_encode_stream on chunk 1 "
+          f"({cb} blocks x {L} lanes, blocks_before {cb}, staged schedule), its first {k} blocks == plain: bit-exact")
+    del blocks, valid, head, carry, got_h, got_c, want_h, want_c
+
+    # (b) exactness against the plain versions on the CPU, at a few blocks
+    ms_cfg = at.EncodeConfig(2, RATE, 4, 1024, 1, 2)
+    mono_cfg = at.EncodeConfig(1, RATE, 3, 1024, 0, 1)
+    mono_nspb = mono_cfg.geometry().num_samples_per_block
+    cases = [
+        (f"{PILE_STREAMS} streams of 1 sample to 3 blocks", cfg, PILE_STREAMS, 3 * nspb, {}),
+        (f"{PILE_STREAMS + 1} streams (past the staging gate) of up to 2 blocks", cfg, PILE_STREAMS + 1, 2 * nspb, {}),
+        ("mid/side, 64 streams of up to 2 blocks", ms_cfg, 64, 2 * nspb, {}),
+        ("mono 3-bit trials 1, 64 streams of up to 2 blocks", mono_cfg, 64, 2 * mono_nspb, {}),
+        ("parallel, chunks of 4 and 1 warm pass, 64 streams of up to 8 blocks", cfg, 64, 8 * nspb,
+         dict(parallel_blocks=True, parallel_chunk_blocks=4, parallel_warm_passes=1)),
+    ]
+    for i, (label, c, count, longest, kw) in enumerate(cases):
+        small = pile_streams(pcm[: c.num_channels], rng.integers(1, longest + 1, count), SEED + 8 + i)
+        reset_all_launches()
+        got = at.encode_batch(small, c, device="cuda", **kw)
+        small_counts = {k: v for k, v in all_launches().items() if v}
+        check(small_counts.get(fe.STREAM_KERNEL, 0) >= 1, f"{label}: kernel 3 never launched")
+        with cpu_threads(1):
+            check(got == at.encode_batch(small, c, device="cpu", **kw), f"encode_batch {label}: cuda != cpu")
+        print(f"[batch] {label}, {count * c.num_channels} lanes: cuda == cpu, bit-exact; launches {small_counts}")
+
+    # (c) times: piles of 2-s streams, beside one stream's sequential encode()
+    def host_s(fn, iters=2):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters
+
+    two = pile_streams(pcm, [PILE_TIME_SECONDS * RATE] * max(PILE_SIZES), SEED + 20)
+    solo_s = host_s(lambda: at.encode(two[0], cfg, device="cuda"))
+    solo_rate = two[0].size / solo_s
+    rates = {}
+    for size in PILE_SIZES:
+        # the 2,048 pile runs three more times below, under the profilers
+        s = host_s(lambda: at.encode_batch(two[:size], cfg, device="cuda"), 1 if size == max(PILE_SIZES) else 2)
+        rates[size] = size * two[0].size / s
+        print(f"[time] encode_batch of {size} stereo streams of {PILE_TIME_SECONDS} s: {s * 1e3:.4f} ms, "
+              f"{rates[size]:.6e} samples/s, {rates[size] / solo_rate:.2f}x the one-stream sequential encode() "
+              f"({solo_s * 1e3:.4f} ms, {solo_rate:.6e} samples/s) ({card})")
+    profile(f"encode_batch of {max(PILE_SIZES)} stereo streams of {PILE_TIME_SECONDS} s (host clock around it above)",
+            lambda: at.encode_batch(two, cfg, device="cuda"), 2, host_rows=10)
+    # the host's share by Python function, own time (cProfile adds its cost to each call)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(at.encode_batch, two, cfg, device="cuda")
+    wall_s = time.perf_counter() - t0
+    top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    print(f"[profile] encode_batch of {max(PILE_SIZES)} streams under cProfile: {wall_s * 1e3:.4f} ms")
+    for (file, line, name), (_, calls, own, _, _) in top[:8]:
+        print(f"[profile]   host python {own * 1e3:.4f} ms x{calls} {pathlib.Path(file).name}:{line}({name[:80]})")
+    return dict(counts=counts, rates=rates, solo_rate=solo_rate,
+                errors={fe.STREAM_KERNEL: stream_err, ep.PASS_KERNEL: pass_err})
+
+
+def cli_phase(cuda, card, main, bench, resident_ms) -> None:
+    """Phase 14: the six CLI modes as subprocesses on the card, the
+    self-check, and measure_throughput beside phase 6's CUDA-event time."""
+    import torch
+    import aad_tpu_torch as at
+    import aad_tpu_torch.cli as cli
+    from aad_tpu_torch.format.wav import WavFormat, read_wav, write_wav
+    from aad_tpu_torch.utils.profiling import measure_throughput
+
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    n = CLI_SECONDS * RATE
+    pcm = np.ascontiguousarray(main["pcm"][:, :n])
+    canonical = pcm.astype(np.int32) << 16
+    write_wav(str(work / "in.wav"), WavFormat(2, RATE, 16, n), canonical)
+    want_aad = at.encode(pcm, main["cfg"], device="cuda")  # the CLI's defaults: 4-bit, 1024 bytes, trials 2
+    (work / "ref.aad").write_bytes(want_aad)
+    _, want_pcm = at.decode(want_aad, device="cuda")
+    wav_in, aad_in = str(work / "in.wav"), str(work / "ref.aad")
+    runs = {
+        "-e": ["-e", wav_in, str(work / "e.aad")],
+        "-d": ["-d", aad_in, str(work / "d.wav")],
+        "-d pallas": ["-d", aad_in, str(work / "dp.wav")],
+        "-r": ["-r", wav_in, str(work / "r.wav")],
+        "-g": ["-g", wav_in, str(work / "g.wav")],
+        "-c": ["-c", wav_in],
+        "-i": ["-i", aad_in],
+    }
+    env = {k: v for k, v in os.environ.items() if k not in ("AAD_TPU_PLATFORM", "AAD_TPU_ENGINE", "AAD_TPU_STRICT")}
+    t0 = time.perf_counter()
+    procs = {
+        mode: subprocess.Popen([sys.executable, "-m", "aad_tpu_torch.cli", *argv], cwd=ROOT, text=True,
+                               env={**env, "AAD_TPU_ENGINE": "pallas"} if mode == "-d pallas" else env,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for mode, argv in runs.items()
+    }
+    try:
+        results = {mode: (p.communicate(timeout=600), p.returncode) for mode, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    for mode, ((out, err), rc) in results.items():
+        check(rc == 0 and err == "", f"python -m aad_tpu_torch.cli {mode}: rc {rc}, stderr {err!r}")
+    check((work / "e.aad").read_bytes() == want_aad, "cli -e != encode(device='cuda')")
+    for name in ("d", "dp", "r"):
+        fmt, got = read_wav(str(work / f"{name}.wav"))
+        check(fmt.bits_per_sample == 16 and np.array_equal(got >> 16, want_pcm), f"cli {name}.wav != decode()")
+    _, gap = read_wav(str(work / "g.wav"))
+    check(np.array_equal(gap, (canonical - (want_pcm.astype(np.int32) << 16)).astype(np.int32)), "cli -g residual")
+    stats = io.StringIO()
+    with contextlib.redirect_stdout(stats):
+        check(cli.main(["-c", wav_in]) == 0, "in-process -c")
+    check(results["-c"][0][0] == stats.getvalue() and stats.getvalue().startswith("RMSE:"), "cli -c statistics")
+    info = results["-i"][0][0]
+    check(re.search(rf"Number of Samples per Channel:\s+{n}\b", info) is not None, f"cli -i: {info!r}")
+    shutil.rmtree(work)
+    print(f"[cli] python -m aad_tpu_torch.cli -e/-d/-r/-g/-c/-i on a {CLI_SECONDS}-s stereo 16-bit WAV, and -d "
+          f"under AAD_TPU_ENGINE=pallas, as 7 processes at once in {cli_s:.3f} s: -e == encode(device='cuda'), "
+          f"-d/-r == decode(device='cuda'), -g == the residual, -c == in-process; -c printed "
+          f"{results['-c'][0][0].strip()!r}")
+    print("[cli] -i: " + " | ".join(" ".join(line.split()) for line in info.splitlines()))
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    report = at.self_check(device=cuda)
+    self_s = time.perf_counter() - t0
+    counts = {k: v for k, v in all_launches().items() if v}
+    check(report["device"] == torch.cuda.get_device_name(cuda) and all(c["ok"] for c in report["checks"]),
+          f"self_check report {report}")
+    check(len(counts) == 4, f"self_check launched {counts}")  # kernels 1, 3, 4, 5 (the probe ran once already)
+    print(f"[utils] self_check(device='cuda') on {report['device']}: {len(report['checks'])} checks ok in "
+          f"{self_s:.3f} s; launches {counts}")
+
+    h = bench["header"]
+    dec = at.Decoder.from_header(h, device="cuda")
+    payload = torch.from_numpy(np.frombuffer(bench["data"], np.uint8)[at.FILE_HEADER_SIZE:].copy()).to(cuda)
+    rep = measure_throughput(dec.decode_payload_ondevice, payload, h.num_samples * h.num_channels, DECODE_ITERS)
+    print(f"[utils] measure_throughput of the device-resident fused decode: {rep}; {rep.samples_per_sec:.6e} "
+          f"samples/s, {rep.seconds_per_iter * 1e3:.4f} ms a call against phase 6's {resident_ms:.4f} ms ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -1092,7 +1395,13 @@ def main() -> int:
     check(fd.stepsize_corrections(cuda) == (), "non-empty correction set")
     probe_err = int((probe.cpu() - probe_plain).abs().max())
     print(f"[probe] 256 slots equal STEPSIZE_TABLE; corrections ()")
+    # the launch floor: a one-element op on the same stream, the least a launch takes
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    floor_ms = cuda_ms(lambda: one.add_(1), FLOOR_ITERS, warmup=20)
+    print(f"[probe] launch floor: a one-element add_ on the card {floor_ms:.6f} ms a launch, CUDA events over "
+          f"{FLOOR_ITERS} launches ({card})")
 
+    stamp("1-3 device, build, probe")
     # 4. each kernel against its plain version, bit for bit
     rng = np.random.default_rng(SEED)
     decode_err = 0
@@ -1113,6 +1422,7 @@ def main() -> int:
     check(err == 0, f"kernel != plain on codes off a 4-byte boundary: max |err| {err}")
     print("[kernel-vs-plain] aad_decode_lanes on a (40, 1, 21) view 21 bytes into its storage: bit-exact")
 
+    stamp("4 decode kernel checks")
     # 5. main path at full size
     num_samples = RATE * SECONDS
     data, header = bench_stream(num_samples)
@@ -1168,6 +1478,7 @@ def main() -> int:
     check(np.array_equal(got, ref) and not got[:, -100:].any(), "lenient: cuda != cpu")
     print("[main] truncated stream: strict raises, lenient cuda == cpu, bit-exact")
 
+    stamp("5 decode main path")
     # 6. times at the main path's shapes
     dec = at.Decoder.from_header(h, device="cuda")
     payload = torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()).to(cuda)
@@ -1210,6 +1521,10 @@ def main() -> int:
           f"plain torch on the card {plain_ms:.4f} ms ({card})")
     print(f"[time] aad_stepsize_probe 256 slots: kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, "
           f"bound {probe_bound[0]:.6f} ms ({probe_bound[1]}) ({card})")
+    floor_bound = floor_ms + probe_bound[0]
+    print(f"[time] aad_stepsize_probe against the launch floor: floor-inclusive bound {floor_bound:.6f} ms "
+          f"(floor {floor_ms:.6f} + bytes {probe_bound[0]:.6f}), {floor_bound / probe_ms:.1%} of it: "
+          f"{'reaches' if probe_ms <= 2 * floor_bound else 'does not reach'} half of it ({card})")
     print(f"[time] device-resident decode_payload_ondevice: {resident_ms:.4f} ms, "
           f"{total / (resident_ms / 1e3):.6e} samples/s ({card})")
     print(f"[time] transfer-inclusive decode(): {e2e_s * 1e3:.4f} ms, "
@@ -1229,16 +1544,32 @@ def main() -> int:
     check(copies == 0, f"the fused decode still copies the codes time-major ({copies} a call)")
     del framed, lanes, payload, dec
 
+    stamp("6 decode times")
     # 7-9. encode
     stream_err, pass_err = encode_kernel_checks(cuda)
+    stamp("7 encode kernel checks")
     encoded = encode_main_path(cuda)
+    stamp("8 encode main path")
     records += encode_times(cuda, card, encoded, stream_err, pass_err)
+    stamp("9 encode times")
 
     # 10-12. the two-phase decode engine, random access, batch, streaming, transcode
     bench.update(mono=mono, encode=encoded)
     lms_err = lms_kernel_checks(cuda)
     slice_run = slice_main_path(cuda, bench)
     records.append(slice_times(cuda, card, bench, slice_run, lms_err))
+    stamp("10-12 two-phase decode, range, batch, streaming, transcode")
+
+    # 13. encode_batch; its pile's launches join kernels 3 and 4's main-path counts
+    pile_run = batch_encode_phase(cuda, card, encoded)
+    for record in records:
+        record["launches"] += pile_run["counts"].get(record["name"], 0)
+        record["max_abs_err"] = max(record["max_abs_err"], pile_run["errors"].get(record["name"], 0))
+
+    stamp("13 encode_batch")
+    # 14. the CLI and the utilities
+    cli_phase(cuda, card, encoded, bench, resident_ms)
+    stamp("14 CLI and utilities")
 
     print(json.dumps({"kernels": records}))
     print(smi())

@@ -1,0 +1,104 @@
+"""aad_tpu_torch.encode_batch(..., device="cpu") against aad_tpu.encode_batch(engine="scan").
+
+A pile of streams runs in lockstep with streams x channels on the lane
+axis, so each stream's bytes must equal its solo port encode and
+``aad_tpu``'s batch encode (scan engine): ragged lengths (a stream shorter
+than a block, a last block with fewer than four samples), mid/side, mono,
+bps 2/3/4, trials 0-2, the carry-chained chunks of a long pile (constants
+shrunk so that a stream ends in an earlier chunk than the others), and the
+block-parallel mode with chunks and warm passes. PCM comes from numpy
+seeds; streams are a few blocks of small geometries, since the plain encode
+engine is slow.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import aad_tpu
+from aad_tpu.codec.encoder import EncodeConfig as JaxEncodeConfig
+
+import aad_tpu_torch
+import aad_tpu_torch.codec.encoder as enc_mod
+from aad_tpu_torch import EncodeConfig
+
+
+def _configs(nch, bps, bsize, ms=False, trials=2):
+    args = dict(num_channels=nch, sampling_rate=44100, bits_per_sample=bps, max_block_size=bsize,
+                ch_process_method=int(ms), num_encode_trials=trials)
+    return JaxEncodeConfig(**args), EncodeConfig(**args)
+
+
+def _pile(seed, nch, lengths):
+    rng = np.random.default_rng(seed)
+    pile = []
+    for n in lengths:
+        tone = 9000 * np.sin(np.arange(n) / (5.0 + 4 * rng.random((nch, 1))))
+        pile.append((tone + rng.normal(0, 900, (nch, n))).astype(np.int32))
+    return pile
+
+
+def _check(pile, nch, bps, bsize, ms=False, trials=2, **kw):
+    """The port's pile == aad_tpu's pile == each stream's solo port encode."""
+    jcfg, tcfg = _configs(nch, bps, bsize, ms, trials)
+    got = aad_tpu_torch.encode_batch(pile, tcfg, device="cpu", **kw)
+    assert got == aad_tpu.encode_batch(pile, jcfg, engine="scan", **kw)
+    assert got == [aad_tpu_torch.encode(pcm, tcfg, device="cpu", **kw) for pcm in pile]
+
+
+@pytest.mark.parametrize(
+    "nch,bps,ms,trials,bsize",
+    [(2, 4, False, 2, 96), (2, 3, True, 1, 96), (1, 2, False, 0, 96), (1, 4, False, 2, 128), (2, 2, True, 2, 128)],
+)
+def test_pile_matches_scan_engine_and_solo_encodes(nch, bps, ms, trials, bsize):
+    """Ragged lengths: shorter than a block, a last block of 2 samples (the
+    reference's early return), whole blocks, and a ragged tail."""
+    nspb = _configs(nch, bps, bsize)[1].geometry().num_samples_per_block
+    lengths = [nspb - 9, 3 * nspb + 2, 2 * nspb, 4 * nspb - 17]
+    _check(_pile(nch * 10 + bps, nch, lengths), nch, bps, bsize, ms, trials)
+
+
+@pytest.mark.parametrize("ms,trials", [(False, 2), (True, 1)])
+def test_long_pile_chains_the_carry_across_chunks(monkeypatch, ms, trials):
+    """Constants shrunk so that the pile runs in chunks of 2 blocks: one
+    stream ends inside chunk 0 and keeps its bytes while the others run on
+    to chunk 3, one ends on a chunk boundary, one in the last chunk."""
+    monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
+    monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
+    nspb = _configs(2, 4, 96)[1].geometry().num_samples_per_block
+    lengths = [nspb + 5, 7 * nspb - 11, 4 * nspb, 6 * nspb + 3]
+    _check(_pile(3 + trials, 2, lengths), 2, 4, 96, ms, trials)
+
+
+@pytest.mark.parametrize("chunk_blocks,warm_passes", [(1, 0), (2, 1), (3, 0)])
+def test_parallel_pile_matches_scan_engine_and_solo_encodes(chunk_blocks, warm_passes):
+    nspb = _configs(2, 4, 96)[1].geometry().num_samples_per_block
+    lengths = [2 * nspb + 3, 5 * nspb - 7, nspb - 30]
+    _check(_pile(chunk_blocks + 10 * warm_passes, 2, lengths), 2, 4, 96, ms=warm_passes > 0, trials=2,
+           parallel_blocks=True, parallel_chunk_blocks=chunk_blocks, parallel_warm_passes=warm_passes)
+
+
+def test_int16_pile_and_the_empty_pile():
+    jcfg, tcfg = _configs(1, 4, 96)
+    assert aad_tpu_torch.encode_batch([], tcfg, device="cpu") == []
+    assert aad_tpu.encode_batch([], jcfg, engine="scan") == []
+    pile = _pile(5, 1, [150, 40])
+    got = aad_tpu_torch.encode_batch([p.astype(np.int16) for p in pile], tcfg, device="cpu")
+    assert got == aad_tpu.encode_batch(pile, jcfg, engine="scan")
+
+
+@pytest.mark.parametrize("shape", [(1, 50), (3, 50), (100,), (2, 2, 50)])
+def test_bad_shapes_raise_as_in_aad_tpu(shape):
+    jcfg, tcfg = _configs(2, 4, 96)
+    pile = [np.zeros((2, 80), np.int32), np.zeros(shape, np.int32)]
+    with pytest.raises(aad_tpu.InvalidArgumentError):
+        aad_tpu.encode_batch(pile, jcfg, engine="scan")
+    with pytest.raises(aad_tpu_torch.InvalidArgumentError):
+        aad_tpu_torch.encode_batch(pile, tcfg, device="cpu")
+
+
+def test_empty_stream_raises_at_its_header():
+    _, tcfg = _configs(2, 4, 96)
+    with pytest.raises(aad_tpu_torch.InvalidFormatError):
+        aad_tpu_torch.encode_batch([np.zeros((2, 80), np.int32), np.zeros((2, 0), np.int32)], tcfg, device="cpu")

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain torch versions, bit for bit (needs a GPU).
+"""The CUDA kernels against their plain torch versions, bit for bit, and the
+entry points that drive them on the card against the CPU (needs a GPU).
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -254,3 +255,47 @@ def test_cuda_encode_matches_cpu(cuda, nch, bps, ms, parallel):
     pcm = np.random.default_rng(nch + bps).integers(-20000, 20000, (nch, n)).astype(np.int32)
     kw = dict(parallel_blocks=parallel, parallel_chunk_blocks=2 if parallel else 1)
     assert aad_tpu_torch.encode(pcm, cfg, device="cuda", **kw) == aad_tpu_torch.encode(pcm, cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("streams", [1, 2049])  # 2 lanes; 4,098 lanes, past kernel 3's staging gate (4,096)
+@pytest.mark.parametrize("chunked", [False, True])
+def test_cuda_encode_batch_matches_cpu(cuda, monkeypatch, streams, chunked):
+    """A pile of ragged stereo streams, cuda against cpu; chunked: constants
+    shrunk so that the pile runs in 3 chunks of 2 blocks, the carry rebuilt
+    by kernel 4 between them, and a stream ending in chunk 0."""
+    from aad_tpu_torch.codec import encoder
+
+    if chunked:
+        monkeypatch.setattr(encoder, "_OVERLAP_MIN_BLOCKS", 3)
+        monkeypatch.setattr(encoder, "_OVERLAP_CHUNK_BLOCKS", 2)
+    cfg = aad_tpu_torch.EncodeConfig(2, 16000, 4, 96, 0, 2)
+    nspb = cfg.geometry().num_samples_per_block
+    rng = np.random.default_rng(streams)
+    lengths = rng.integers(1, 6 * nspb, streams)
+    lengths[0] = 6 * nspb - 5
+    if streams > 1:
+        lengths[1] = nspb + 3
+    pile = [rng.integers(-20000, 20000, (2, n)).astype(np.int16) for n in lengths]
+    fused_encode.reset_launches()
+    encode_pass.reset_launches()
+    got = aad_tpu_torch.encode_batch(pile, cfg, device="cuda")
+    chunks = 3 if chunked else 1
+    assert fused_encode.launches == {fused_encode.STREAM_KERNEL: chunks}
+    assert encode_pass.launches == {encode_pass.PASS_KERNEL: chunks - 1}
+    assert got == aad_tpu_torch.encode_batch(pile, cfg, device="cpu")
+    assert got[-1] == aad_tpu_torch.encode(pile[-1], cfg, device="cuda")
+
+
+def test_self_check_on_the_card(cuda):
+    report = aad_tpu_torch.self_check(device=cuda)
+    assert report["device"] == torch.cuda.get_device_name(cuda)
+    assert len(report["checks"]) == 5 and all(c["ok"] for c in report["checks"])
+
+
+def test_measure_throughput_on_the_card(cuda):
+    from aad_tpu_torch.utils.profiling import measure_throughput
+
+    x = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+    report = measure_throughput(lambda t: t * 3 + 1, x, x.numel(), iters=5)
+    assert report.iters == 5 and report.total_samples == 5 * x.numel()
+    assert 0 < report.seconds_per_iter < 1 and report.samples_per_sec > 0
