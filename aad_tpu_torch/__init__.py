@@ -27,13 +27,19 @@ Public surface:
     decode_header / encode_header / validate_header / HeaderInfo
     compute_block_geometry / geometry_from_header / calculate_block_size
     QualityStats / quality_stats / roundtrip_stats / self_check (utils.quality)
+    native                            -> the native host engine (the port's copy
+                                         of aad_tpu's aadx.cc), also engine="native"
+                                         of the entry points above
     python -m aad_tpu_torch.cli       -> the reference CLI's six modes
 
 ``device="cuda"`` runs the CUDA kernels (built with nvcc at first use);
 ``device="cpu"`` runs their plain torch versions. The decode ``engine`` is
 ``"auto"``/``"fused"`` (one kernel for the whole recurrence) or ``"pallas"``
-(phase A as torch ops, then the LMS kernel), with ``aad_tpu``'s names.
+(phase A as torch ops, then the LMS kernel), with ``aad_tpu``'s names, or
+``"native"``; ``"auto"`` never selects the native engine.
 """
+
+from . import native
 
 from .codec.batch import decode_batch
 from .codec.batch_encode import encode_batch
@@ -111,6 +117,7 @@ __all__ = [
     "encoded_stream_size",
     "geometry_from_header",
     "lenient_prefix",
+    "native",
     "quality_stats",
     "roundtrip_stats",
     "self_check",

@@ -15,8 +15,10 @@ names (the argv surface is pinned to the reference's):
 * ``AAD_TPU_PLATFORM=cpu`` runs it on the CPU, by the kernels' plain torch
   versions; otherwise the six modes need a card, and fail without one;
 * ``AAD_TPU_ENGINE`` is the decode engine, ``auto`` (the default),
-  ``fused`` or ``pallas``; ``native`` is not ported yet and fails, it does
-  not fall back;
+  ``fused`` or ``pallas``, or ``native``: the native host engine
+  (``aad_tpu_torch.native``) encodes and decodes, on the host, and a failed
+  build of it fails the command, it does not fall back. ``auto`` stays on
+  the card, where ``aad_tpu``'s ``_use_native`` takes the native engine;
 * ``AAD_TPU_STRICT=0`` decodes what a truncated stream holds (-d).
 
 Usage: python -m aad_tpu_torch.cli [options] INPUT [OUTPUT]
@@ -32,6 +34,7 @@ import sys
 import numpy as np
 import torch
 
+from . import native as native_engine
 from .cliparse import OptionSpec, parse_arguments, print_description, strtol10
 from .codec.decoder import ENGINES, decode
 from .codec.encoder import EncodeConfig, encode
@@ -140,7 +143,8 @@ def _write_wav_16bit(path: str, fmt: WavFormat, pcm16: np.ndarray) -> None:
 
 
 def _encode(args, pcm, fmt) -> bytes:
-    return encode(pcm, _config(args, fmt), device=args.device)
+    engine = "native" if args.engine == "native" else "auto"
+    return encode(pcm, _config(args, fmt), device=args.device, engine=engine)
 
 
 def _decode(args, data):
@@ -254,12 +258,15 @@ def main(argv=None) -> int:
         strict=os.environ.get("AAD_TPU_STRICT", "1") != "0",
     )
     if args.engine == "native":
-        sys.stderr.write(f"{prog}: AAD_TPU_ENGINE=native: the native engine is not ported to aad_tpu_torch yet. \n")
+        try:
+            native_engine.library()
+        except native_engine.NativeBuildError as e:
+            sys.stderr.write(f"{prog}: AAD_TPU_ENGINE=native: the native engine did not build: {e} \n")
+            return 1
+    elif args.engine not in ENGINES:
+        sys.stderr.write(f"{prog}: AAD_TPU_ENGINE={args.engine}: expected one of {', '.join((*ENGINES, 'native'))}. \n")
         return 1
-    if args.engine not in ENGINES:
-        sys.stderr.write(f"{prog}: AAD_TPU_ENGINE={args.engine}: expected one of {', '.join(ENGINES)}. \n")
-        return 1
-    if args.device == "cuda" and not torch.cuda.is_available():
+    elif args.device == "cuda" and not torch.cuda.is_available():
         sys.stderr.write(f"{prog}: no CUDA device; AAD_TPU_PLATFORM=cpu runs on the CPU. \n")
         return 1
     args.input = others[0] if len(others) > 0 else None

@@ -8,8 +8,8 @@ uploaded once and decoded by one launch (``Decoder``'s device pipeline).
 
 Not carried over from ``aad_tpu.codec.batch``: the bucketing of the group's
 block count, which exists only to reuse jit compiles, and the u32 wire
-words. Not yet ported: the native engine that ``engine="auto"`` selects
-there off the TPU.
+words. ``engine="native"`` runs the native host engine, one stream a
+thread (``aad_tpu_torch.native.decode_batch``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import native as native_engine
 from ..constants import CH_PROCESS_MS, FILE_HEADER_SIZE
 from ..format.framing import block_codes, pad_to_blocks, parse_block_headers
 from ..format.geometry import geometry_from_header, num_blocks_for
@@ -36,7 +37,15 @@ def decode_batch(
     Returns a list of (header, pcm[C, N] int16 numpy) in input order. A
     payload shorter than its header declares decodes with the missing bytes
     as zeros, as ``aad_tpu.codec.batch.decode_batch`` does.
+
+    ``engine="native"`` decodes on the host, one native decode a stream on a
+    thread pool (a cut payload raises there, as in ``aad_tpu``). ``"auto"``
+    stays on ``device``, where ``aad_tpu`` takes the native engine off the
+    TPU: the port runs on the card unless the caller asks otherwise.
     """
+    native = native_engine.resolve(engine)
+    if native is not None:
+        return [(h, pcm.astype(np.int16)) for h, pcm in native.decode_batch(streams)]
     engine = resolve_engine(engine)
     device = resolve_device(device)
     if engine == "fused":

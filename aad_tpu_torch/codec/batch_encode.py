@@ -26,9 +26,8 @@ The pipeline:
 
 Not carried over from ``aad_tpu.codec.batch_encode``: the folded c-major
 wire32 lane layout, a TPU tiling concern (a thread is a lane here, so
-(S, C) lanes need no fold); and ``engine=`` with its ``auto``/``native``
-dispatch, which waits for the native engine's port (``device`` picks the
-engine here).
+(S, C) lanes need no fold). ``engine="native"`` runs the native host
+engine, one stream a thread (``aad_tpu_torch.native.encode_batch``).
 
 PCM outside the int16 range raises InvalidFormatError, as ``Encoder.encode``
 does. Such input is outside the contract of both packages, and
@@ -42,10 +41,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import native as native_engine
 from ..format.geometry import num_blocks_for
 from ..format.header import encode_header
 from .device import resolve_device
-from .encoder import EncodeConfig, as_int16, encode_blocks, payload_size
+from .encoder import EncodeConfig, as_int16, encode_blocks, payload_size, resolve_engine
 from .result import InvalidArgumentError
 
 
@@ -56,6 +56,7 @@ def encode_batch(
     parallel_blocks: bool = False,
     parallel_chunk_blocks: int = 1,
     parallel_warm_passes: int = 0,
+    engine: str = "auto",
 ) -> list[bytes]:
     """Encode a pile of (C, n_s) PCM streams under one configuration.
 
@@ -64,9 +65,14 @@ def encode_batch(
     (with ``parallel_blocks=True``, its solo block-parallel encode; see
     :class:`aad_tpu_torch.codec.encoder.Encoder`), and
     ``aad_tpu.encode_batch(..., engine="scan")``.
+
+    ``engine="native"`` encodes on the host after the same checks, one
+    native encode a stream on a thread pool. ``"auto"`` stays on ``device``,
+    where ``aad_tpu`` takes the native engine off the TPU: the port runs on
+    the card unless the caller asks otherwise.
     """
     config.validate()
-    device = resolve_device(device)
+    native = native_engine.resolve(resolve_engine(engine))
     nch = config.num_channels
     arrays = []
     for pcm in streams:
@@ -79,7 +85,11 @@ def encode_batch(
     # encode_header re-validates, with the header-time checks (num_samples > 0)
     file_headers = [encode_header(config.header_for(pcm.shape[1])) for pcm in arrays]
     arrays = [as_int16(pcm) for pcm in arrays]
+    if native is not None:
+        return native.encode_batch(arrays, config, parallel_blocks=parallel_blocks,
+                                   chunk_blocks=parallel_chunk_blocks, warm_passes=parallel_warm_passes)
 
+    device = resolve_device(device)
     geo = config.geometry()
     nspb = geo.num_samples_per_block
     lengths = [pcm.shape[1] for pcm in arrays]

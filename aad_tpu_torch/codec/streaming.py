@@ -17,8 +17,11 @@ block self-containedness makes streaming direct: the whole blocks in the
 buffer decode at once, by ``Decoder``'s pipeline.
 
 ``device="cuda"`` launches the kernels, ``"cpu"`` runs their plain torch
-versions. Not yet ported: the native hybrid dispatch that ``aad_tpu``'s
-``engine="auto"`` selects; ``aad_tpu``'s jit bucketing of the decode batch
+versions. ``engine="native"`` runs both classes on the native host engine
+(``aad_tpu_torch.native``: ``encode_chunk`` with its own carry,
+``decode_payload_blocks``); ``"auto"`` stays on ``device``, where
+``aad_tpu`` sends it to the native engine: the port runs on the card unless
+the caller asks otherwise. ``aad_tpu``'s jit bucketing of the decode batch
 is not carried over (torch runs eagerly).
 """
 
@@ -34,23 +37,31 @@ from ..format.geometry import encoded_block_bytes, geometry_from_header, num_blo
 from ..format.header import HeaderInfo, decode_header, encode_header, validate_header
 from ..ops.encode import lr_to_ms
 from ..ops.fused_encode import encode_stream
+from .. import native as native_engine
 from .decoder import Decoder, resolve_engine
 from .device import resolve_device
 from .encoder import EncodeConfig, _block_bytes, _pad_to_blocks, as_int16, payload_size
+from .encoder import resolve_engine as resolve_encode_engine
 from .result import InvalidArgumentError
 
 
 class StreamingEncoder:
     """Chunked encoder with bit-exact predictor-state carryover."""
 
-    def __init__(self, config: EncodeConfig, device="cuda", total_samples: int | None = None):
+    def __init__(self, config: EncodeConfig, device="cuda", total_samples: int | None = None,
+                 engine: str = "auto"):
         """``total_samples``: declare the stream length up front so
         :meth:`header` is valid before any data arrives (the 31-byte header
-        carries the total), for progressive transmission."""
+        carries the total), for progressive transmission. ``engine`` is
+        ``"auto"`` (the kernels on ``device``) or ``"native"`` (the native
+        host engine, whatever ``device``)."""
         config.validate()
         self.config = config
         self.geometry = config.geometry()
-        self.device = resolve_device(device)
+        self._native = native_engine.resolve(resolve_encode_engine(engine))
+        self.device = None if self._native else resolve_device(device)
+        if self._native:
+            self._native_carry = self._native.stream_state(config)
         self.total_samples = total_samples
         self._buffer = np.empty((config.num_channels, 0), dtype=np.int16)
         self._carry = None
@@ -103,6 +114,11 @@ class StreamingEncoder:
         the last block may be short."""
         cfg, geo = self.config, self.geometry
         n = pcm.shape[1]
+        if self._native is not None:
+            data = self._native.encode_chunk(pcm, cfg, *self._native_carry, self._blocks_done)
+            self._blocks_done += num_blocks_for(n, geo.num_samples_per_block)
+            self._samples_done += n
+            return data
         pcm_t = torch.from_numpy(np.ascontiguousarray(pcm)).to(self.device)
         blocks, valid = _pad_to_blocks(pcm_t, geo, 0, num_blocks_for(n, geo.num_samples_per_block))
         if cfg.ch_process_method == CH_PROCESS_MS:
@@ -161,14 +177,18 @@ class StreamingDecoder:
     Block self-containedness (reference: src/aad_decoder.c:363-380) lets
     each pushed span of complete blocks decode on its own, so the latency is
     one block whatever the stream's length. ``engine`` is that of
-    :class:`Decoder`.
+    :class:`Decoder`, or ``"native"`` (the native host engine, whatever
+    ``device``).
     """
 
     def __init__(self, device="cuda", engine: str = "auto"):
-        self._engine = resolve_engine(engine)
-        self._device = resolve_device(device)
+        self._native = native_engine.resolve(engine)
+        if self._native is None:
+            self._engine = resolve_engine(engine)
+            self._device = resolve_device(device)
         self._buffer = _ByteFIFO()
         self._header: HeaderInfo | None = None
+        self._geometry = None
         self._decoder: Decoder | None = None
         self._samples_out = 0
 
@@ -185,10 +205,12 @@ class StreamingDecoder:
             header = decode_header(self._buffer.pop(FILE_HEADER_SIZE))
             validate_header(header)
             self._header = header
-            self._decoder = Decoder.from_header(header, device=self._device, engine=self._engine)
+            self._geometry = geometry_from_header(header.num_channels, header.bits_per_sample, header.block_size)
+            if self._native is None:
+                self._decoder = Decoder.from_header(header, device=self._device, engine=self._engine)
 
         h = self._header
-        geo = self._decoder.geometry
+        geo = self._geometry
         nspb = h.num_samples_per_block
         remaining = h.num_samples - self._samples_out
         # Collect every decodable block in the buffer (the stream's last
@@ -209,6 +231,10 @@ class StreamingDecoder:
         if not rows:
             return self._empty()
         self._samples_out += emit
+        if self._native is not None:
+            # 4 bytes of slack past the blocks for the engine's SIMD reads
+            payload = np.concatenate(rows + [np.zeros(4, dtype=np.uint8)])
+            return self._native.decode_payload_blocks(payload, h, emit).astype(np.int16)
         # only the stream's last block is short, so the samples are a prefix
         payload = torch.from_numpy(np.concatenate(rows)).to(self._device)
         return self._decoder._decode_prefix(payload, len(rows), emit).cpu().numpy()

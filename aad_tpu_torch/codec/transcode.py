@@ -33,7 +33,8 @@ def transcode(
     (``num_encode_trials`` defaults to the reference CLI's 2: the source
     stream does not record its trial count). ``engine`` selects the decode
     engine (see :class:`~aad_tpu_torch.codec.decoder.Decoder`); the encode
-    runs on ``device``. Returns complete .aad bytes.
+    runs on ``device``, but for ``engine="native"``, which runs both on the
+    native host engine. Returns complete .aad bytes.
     """
     header, pcm = decode(data, device=device, engine=engine)
     cfg = EncodeConfig(
@@ -47,4 +48,5 @@ def transcode(
     return encode(
         pcm.astype(np.int16), cfg, device=device, parallel_blocks=parallel_blocks,
         parallel_chunk_blocks=parallel_chunk_blocks, parallel_warm_passes=parallel_warm_passes,
+        engine="native" if engine == "native" else "auto",
     )

@@ -24,8 +24,10 @@ def encode_file(
     ms: bool = False,
     num_encode_trials: int = 2,
     device="cuda",
+    engine: str = "auto",
 ) -> HeaderInfo:
-    """WAV file -> .aad file, encoded on ``device``; returns the written stream header."""
+    """WAV file -> .aad file, encoded on ``device`` (``engine="native"``: by
+    the native host engine); returns the written stream header."""
     fmt, canonical = read_wav(wav_path)
     pcm = (canonical >> 16).astype(np.int16)
     cfg = EncodeConfig(
@@ -36,14 +38,15 @@ def encode_file(
         ch_process_method=1 if ms else 0,
         num_encode_trials=num_encode_trials,
     )
-    data = encode(pcm, cfg, device=device)
+    data = encode(pcm, cfg, device=device, engine=engine)
     with open(aad_path, "wb") as f:
         f.write(data)
     return cfg.header_for(pcm.shape[1])
 
 
 def decode_file(aad_path: str, wav_path: str, device="cuda", engine: str = "auto") -> HeaderInfo:
-    """.aad file -> 16-bit WAV file, decoded on ``device``; returns the stream header."""
+    """.aad file -> 16-bit WAV file, decoded on ``device`` by ``engine`` (as
+    :func:`~aad_tpu_torch.codec.decoder.decode`); returns the stream header."""
     with open(aad_path, "rb") as f:
         data = f.read()
     header, pcm = decode(data, device=device, engine=engine)

@@ -8,9 +8,10 @@ takes seconds.
 
 The library lands in ``build/aad_tpu_torch/<hash>/libaad_kernels.so`` beside
 the package, keyed by a hash of the sources and flags, under a file lock so
-that concurrent processes build it once. A missing ``nvcc`` or a failed
-build raises :class:`KernelBuildError`: nothing falls back to the plain torch
-versions.
+that concurrent processes build it once (:func:`build_locked`, which also
+builds the native host engine, ``aad_tpu_torch.native``). A missing ``nvcc``
+or a failed build raises :class:`KernelBuildError`: nothing falls back to the
+plain torch versions.
 """
 
 from __future__ import annotations
@@ -76,25 +77,31 @@ def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def source_hash() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+def source_hash(flags=NVCC_FLAGS, sources=None) -> str:
+    """16 hex digits of the sha256 of ``flags`` and the sources' names and
+    bytes (by default the kernels' flags and sources)."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in _sources() if sources is None else sources:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     return digest.hexdigest()[:16]
 
 
-def build(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
-    """Compile the kernels if this source hash has no library yet; return its path.
+def build_locked(out_dir: pathlib.Path, lib_name: str, stages, error: type[Exception]) -> pathlib.Path:
+    """Build ``out_dir / lib_name`` once, whatever the number of processes
+    that ask at the same time; return its path.
 
-    The compiler's output (including ``-Xptxas -v``: registers, shared
-    memory and spills per kernel) is kept in ``build.log`` beside it.
+    ``stages(tmp, tag)`` gives the commands to run: a list of stages, each a
+    list of commands started together, a stage only once the one before has
+    succeeded. The last stage writes ``tmp``, which is moved to the library's
+    path at once when every command has succeeded; intermediate files are
+    named ``*.{tag}.o`` in ``out_dir`` and removed. The commands' output goes
+    to ``build.log`` in ``out_dir``; a command that fails raises ``error``
+    with its output.
     """
-    out_dir = build_dir / source_hash()
-    lib = out_dir / LIB_NAME
+    lib = out_dir / lib_name
     if lib.is_file():
         return lib
-    nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -102,31 +109,52 @@ def build(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
             if lib.is_file():  # built by another process while we waited
                 return lib
             tag = os.getpid()
-            tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
-            srcs = sorted(CSRC.glob("*.cu"))
-            objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
-            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
-            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                     for cmd in cmds]  # one nvcc per source, all at once
-            results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
-            link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
-                    *(str(obj) for obj in objs)]
-            if all(rc == 0 for _, _, rc in results):
-                proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                results.append((link, proc.stdout, proc.returncode))
+            tmp = out_dir / f"{lib_name}.{tag}.tmp"
+            results = []
+            for stage in stages(tmp, tag):
+                procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                         for cmd in stage]
+                results += [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(stage, procs)]
+                if any(rc != 0 for _, _, rc in results):
+                    break
             (out_dir / "build.log").write_text(
                 "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
             )
-            for obj in objs:
+            for obj in out_dir.glob(f"*.{tag}.o"):
                 obj.unlink(missing_ok=True)
             failed = [(cmd, out, rc) for cmd, out, rc in results if rc != 0]
             if failed:
+                tmp.unlink(missing_ok=True)
                 cmd, out, rc = failed[0]
-                raise KernelBuildError(f"{' '.join(cmd)} failed ({rc}):\n{out[-4000:]}")
+                raise error(f"{' '.join(cmd)} failed ({rc}):\n{out[-4000:]}")
             os.replace(tmp, lib)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return lib
+
+
+def build(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
+    """Compile the kernels if this source hash has no library yet; return its path.
+
+    One nvcc a source, all started together, then one link. The compiler's
+    output (including ``-Xptxas -v``: registers, shared memory and spills per
+    kernel) is kept in ``build.log`` beside the library.
+    """
+    out_dir = build_dir / source_hash()
+    if (out_dir / LIB_NAME).is_file():
+        return out_dir / LIB_NAME
+    nvcc = find_nvcc()
+
+    def stages(tmp: pathlib.Path, tag: int) -> list[list[list[str]]]:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+        return [
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)],
+            [[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+              *(str(obj) for obj in objs)]],
+        ]
+
+    return build_locked(out_dir, LIB_NAME, stages, KernelBuildError)
 
 
 @functools.cache

@@ -9,7 +9,8 @@ order (after each, the seconds since the start); nothing is caught, so any
 failure exits non-zero:
 
 1. device: name, power limit and toolchain;
-2. build: the CUDA kernels, from ``aad_tpu_torch/csrc`` (timed);
+2. build: the CUDA kernels, from ``aad_tpu_torch/csrc``, and beside them
+   the native host engine, from ``aad_tpu_torch/native`` (timed);
 3. probe: the step-size probe kernel reads exactly ``STEPSIZE_TABLE``; and
    the launch floor, a one-element torch op timed by CUDA events over 1,000
    launches, against which phase 6 holds the probe;
@@ -21,7 +22,8 @@ failure exits non-zero:
    int32 (the sums wrap);
 5. the decode main path at full size: the benchmark's 10-minute stereo 4-bit
    stream (58,066 lanes of 988 codes) through ``aad_tpu_torch.decode(...,
-   device="cuda")``, counting kernel launches, then its mid/side variant,
+   device="cuda")`` (its transfer path: chunks of blocks through pinned
+   memory and CUDA streams), counting kernel launches, then its mid/side variant,
    a short mono 3-bit stream with a ragged tail and a lenient decode of a
    truncated stream, each bit-exact against ``device="cpu"``;
 6. decode times, with CUDA events after warm-up: each kernel beside its
@@ -40,13 +42,15 @@ failure exits non-zero:
 8. the encode main path at full width: the 10-minute stereo 4-bit signal
    (58,066 lanes) through ``aad_tpu_torch.encode(..., device="cuda",
    parallel_blocks=True)`` with trials 2, and with chunks of 4 and a warm
-   pass; a 60-second stream through the sequential, chunked
+   pass, each against the native host engine (``aad_tpu_torch.native``) at
+   full width and the plain version on the CPU over its first 8 blocks
+   (whole chunks, which encode independently); a 60-second stream through the sequential, chunked
    ``encode(..., device="cuda")`` (2,904 blocks, 46 chunks, one
    ``aad_encode_pass`` between two), against the one-shot encode and the
    plain encode of an 8-block prefix; the mid/side variant and a mono 3-bit
-   stream with a ragged tail; each bit-exact against ``device="cpu"``, with
-   launch counts; and a round trip of the parallel stream through the
-   CUDA decoder, its SNR beside the CPU round trip's;
+   stream with a ragged tail, bit-exact against ``device="cpu"``; launch
+   counts; and a round trip of the parallel stream through the CUDA
+   decoder, its SNR beside the native stream's through the CPU decoder;
 9. encode times: each encode kernel and its plain version on the card at
    the main path's shapes, kernel 3 also at the sequential path's (2 lanes
    x 64 blocks a launch, its first 8 blocks held against the plain version
@@ -95,11 +99,24 @@ failure exits non-zero:
    pass; the host-clock rate of piles of 1, 32, 512 and 2,048 two-second
    streams beside one stream's sequential ``encode()``, and the device time
    by kernel of the 2,048-stream call under ``torch.profiler``;
-14. ``python -m aad_tpu_torch.cli`` in its six modes (and ``-d`` under
-   ``AAD_TPU_ENGINE=pallas``) as subprocesses on a 10-second stereo WAV,
+14. ``python -m aad_tpu_torch.cli`` in its six modes (``-d`` also under
+   ``AAD_TPU_ENGINE=pallas``, ``-e`` and ``-d`` also under
+   ``AAD_TPU_ENGINE=native``) as subprocesses on a 10-second stereo WAV,
    against ``encode``/``decode(..., device="cuda")``; ``self_check()`` on
    the card; ``measure_throughput`` of the resident fused decode beside
-   phase 6's CUDA-event time of the same call.
+   phase 6's CUDA-event time of the same call;
+15. the transfer paths: ``decode(..., device="cuda")`` of the bench
+   stream, its mid/side variant and a lenient cut stream under both engines
+   against ``device="cpu"`` and the resident decode, bit for bit; kernels 1
+   and 5 at the shape of decode()'s chunk against their plain versions;
+   decode()'s chunk sweep; decode() and the parallel and sequential
+   encode() against the expressions they replace (the resident paths with
+   pageable copies), bit for bit and in turns by the host clock, and under
+   ``torch.profiler`` (device time by kernel and copy, the card's idle
+   share); every ``engine="native"`` entry point (decode strict and
+   lenient, mid/side, mono 3-bit, both encodes, both streaming classes,
+   both batches) against the card's output, with the native engine's rates
+   on the card's host beside the card's.
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -123,6 +140,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -145,6 +163,9 @@ PILE_CHECKS = 12  # its streams drawn by seed held against their solo encode, be
 PILE_SIZES = (1, 32, 512, 2048)  # streams a timed pile
 PILE_TIME_SECONDS = 2  # each timed stream's length
 CLI_SECONDS = 10  # the CLI's WAV
+TRANSFER_CHUNKS = (512, 1024, 2048, 4096, 8192, 16384, 32768)  # blocks a chunk of decode()'s sweep; 32,768: one pass
+TRANSFER_ITERS = 5
+NATIVE_PILE = 256  # streams of encode_batch(engine="native") against the card's
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # The least time the card could take (H100 SXM, NVIDIA's data sheet and the
@@ -612,7 +633,13 @@ def encode_main_path(cuda) -> dict:
     nblocks = -(-n // nspb)
     pcm = bench_pcm(n)
 
-    # (a) block-parallel, the whole 10-minute stream
+    # (a) block-parallel, the whole 10-minute stream, against the native
+    # engine (an independent implementation, held against the plain version
+    # and aad_tpu's native engine on the CPU by the tests) at full width, and
+    # against the plain version on the CPU over a prefix of whole chunks
+    # (parallel chunks are independent, so a prefix is exact)
+    head = at.FILE_HEADER_SIZE
+    prefix = np.ascontiguousarray(pcm[:, : PREFIX_BLOCKS * nspb])
     reset()
     t0 = time.perf_counter()
     par = at.encode(pcm, cfg, device="cuda", parallel_blocks=True)
@@ -620,19 +647,24 @@ def encode_main_path(cuda) -> dict:
     par_launches = counts()
     check(par_launches[fe.STREAM_KERNEL] == 1, f"parallel encode launches {par_launches}")
     t0 = time.perf_counter()
-    ref = at.encode(pcm, cfg, device="cpu", parallel_blocks=True)
-    cpu_s = time.perf_counter() - t0
-    check(par == ref, "parallel encode: cuda != cpu")
+    ref = at.native.encode_parallel(pcm, cfg, 1, 0)
+    native_s = time.perf_counter() - t0
+    check(par == ref, "parallel encode: cuda != native")
+    cpu_prefix = at.encode(prefix, cfg, device="cpu", parallel_blocks=True)
+    check(par[head : head + PREFIX_BLOCKS * geo.block_size] == cpu_prefix[head:], "parallel prefix: cuda != cpu")
     print(f"[encode-main] parallel stereo 4-bit trials 2, {n} samples/ch, {nblocks} blocks, "
-          f"{2 * nblocks} lanes: cuda == cpu, bit-exact ({len(par)} bytes); launches {par_launches}; "
-          f"first call {par_s:.3f} s, cpu {cpu_s:.3f} s")
+          f"{2 * nblocks} lanes: cuda == native engine, bit-exact ({len(par)} bytes); its first {PREFIX_BLOCKS} "
+          f"blocks == cpu; launches {par_launches}; first call {par_s:.3f} s, native {native_s:.3f} s")
     kw = dict(parallel_blocks=True, parallel_chunk_blocks=4, parallel_warm_passes=1)
     reset()
     got = at.encode(pcm, cfg, device="cuda", **kw)
     warm_launches = counts()
     check(warm_launches[fe.STREAM_KERNEL] == 2, f"chunked parallel launches {warm_launches}")
-    check(got == at.encode(pcm, cfg, device="cpu", **kw), "parallel c=4 k=1: cuda != cpu")
-    print(f"[encode-main] parallel, chunks of 4 and 1 warm pass: cuda == cpu, bit-exact; launches {warm_launches}")
+    check(got == at.native.encode_parallel(pcm, cfg, 4, 1), "parallel c=4 k=1: cuda != native")
+    check(got[head : head + PREFIX_BLOCKS * geo.block_size] == at.encode(prefix, cfg, device="cpu", **kw)[head:],
+          "parallel c=4 k=1 prefix: cuda != cpu")
+    print(f"[encode-main] parallel, chunks of 4 and 1 warm pass: cuda == native engine, bit-exact; its first "
+          f"{PREFIX_BLOCKS} blocks == cpu; launches {warm_launches}")
 
     # (b) sequential, chunked with the carry: the first minute
     ns = RATE * SEQ_SECONDS
@@ -649,9 +681,8 @@ def encode_main_path(cuda) -> dict:
     with one_launch():
         one = at.Encoder.from_config(cfg, device="cuda").encode_payload_ondevice(torch.from_numpy(seq_pcm).to(cuda))
     check(one.cpu().numpy().tobytes() == seq[at.FILE_HEADER_SIZE:], "chunked sequential != one-shot")
-    prefix = at.encode(seq_pcm[:, : PREFIX_BLOCKS * nspb], cfg, device="cpu")
-    head = at.FILE_HEADER_SIZE
-    check(prefix[head:] == seq[head : head + PREFIX_BLOCKS * geo.block_size], "sequential prefix != plain")
+    seq_prefix = at.encode(seq_pcm[:, : PREFIX_BLOCKS * nspb], cfg, device="cpu")
+    check(seq_prefix[head:] == seq[head : head + PREFIX_BLOCKS * geo.block_size], "sequential prefix != plain")
     print(f"[encode-main] sequential stereo 4-bit trials 2, {ns} samples/ch, {seq_blocks} blocks in {chunks} "
           f"chunks: chunked == one-shot on the card; first {PREFIX_BLOCKS} blocks == plain encode of the "
           f"prefix (cpu); launches {seq_launches}; first call {seq_s:.3f} s")
@@ -668,12 +699,13 @@ def encode_main_path(cuda) -> dict:
 
     # (d) round trip of the parallel stream through the decoder
     _, dec_cuda = at.decode(par, device="cuda")
-    _, dec_cpu = at.decode(ref, device="cpu")
+    _, dec_cpu = at.decode(ref, device="cpu")  # ref: the native engine's bytes
     snr_cuda, snr_cpu = snr_db(pcm, dec_cuda), snr_db(pcm, dec_cpu)
     check(np.array_equal(dec_cuda, dec_cpu) and snr_cuda == snr_cpu, "round trip: cuda != cpu")
     print(f"[encode-main] round trip of the parallel stream: SNR {snr_cuda:.4f} dB (cuda encode, cuda decode), "
-          f"{snr_cpu:.4f} dB (cpu encode, cpu decode)")
-    return dict(cfg=cfg, pcm=pcm, seq_pcm=seq_pcm, seq=seq, par_launches=par_launches, seq_launches=seq_launches)
+          f"{snr_cpu:.4f} dB (native encode, cpu decode)")
+    return dict(cfg=cfg, pcm=pcm, seq_pcm=seq_pcm, seq=seq, par=par, par_launches=par_launches,
+                seq_launches=seq_launches)
 
 
 def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
@@ -898,6 +930,7 @@ def slice_main_path(cuda, bench) -> dict:
     transcode at full width, each against its one-shot counterpart."""
     import torch
     import aad_tpu_torch as at
+    import aad_tpu_torch.codec.decoder as dec_mod
     from aad_tpu_torch.ops import fused_decode as fd, lms
 
     data, h, ref, ms_data, ms_ref = bench["data"], bench["header"], bench["ref"], bench["ms_data"], bench["ms_ref"]
@@ -909,13 +942,15 @@ def slice_main_path(cuda, bench) -> dict:
         counts[label] = {k: v for k, v in all_launches().items() if v}
         return out
 
-    # (a) the benchmark stream and its mid/side variant, both engines
+    # (a) the benchmark stream and its mid/side variant, both engines; one
+    # launch a chunk of decode()'s transfer path
+    chunks = -(-h.num_samples // h.num_samples_per_block // dec_mod._TRANSFER_CHUNK_BLOCKS)
     t0 = time.perf_counter()
     _, got = drive("decode pallas", lambda: at.decode(data, device="cuda", engine="pallas"))
     first_s = time.perf_counter() - t0
-    check(counts["decode pallas"] == {lms.LMS_KERNEL: 1}, f"pallas decode launches {counts['decode pallas']}")
+    check(counts["decode pallas"] == {lms.LMS_KERNEL: chunks}, f"pallas decode launches {counts['decode pallas']}")
     _, fused = drive("decode fused", lambda: at.decode(data, device="cuda", engine="fused"))
-    check(counts["decode fused"] == {fd.DECODE_KERNEL: 1}, f"fused decode launches {counts['decode fused']}")
+    check(counts["decode fused"] == {fd.DECODE_KERNEL: chunks}, f"fused decode launches {counts['decode fused']}")
     check(np.array_equal(got, fused) and np.array_equal(got, ref), "pallas decode != fused / cpu")
     print(f"[slice] decode(engine='pallas') of the bench stream: == engine='fused' on the card == cpu, bit-exact; "
           f"launches pallas {counts['decode pallas']}, fused {counts['decode fused']}; first call {first_s:.3f} s")
@@ -1145,6 +1180,242 @@ def pile_streams(pcm, lengths, seed) -> list[np.ndarray]:
     return [np.ascontiguousarray(pcm[:, o : o + n]) for o, n in zip(offsets, lengths)]
 
 
+def timeline(label, fn, iters) -> tuple[float, float]:
+    """``fn`` under torch.profiler: the device time by kernel and copy a
+    call, and how much of the call's host-clock time the card was busy,
+    kernels and copies on every stream, overlaps counted once (the rest is
+    its idle share). Returns (host-clock ms, busy ms) a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3 / iters
+    rows = sorted(
+        ((e.self_device_time_total / 1e3 / iters, e.count / iters, e.key)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    print(f"[profile] {label}: {wall_ms:.4f} ms a call by the host clock under the profiler; the card busy "
+          f"{busy_ms:.4f} ms of it (kernels and copies on all streams, overlaps once), idle "
+          f"{1 - busy_ms / wall_ms:.1%}; {sum(r[0] for r in rows):.4f} ms of device time summed")
+    for ms, count, name in rows[:8]:
+        print(f"[profile]   {ms:.4f} ms x{count:g} {name[:100]}")
+    return wall_ms, busy_ms
+
+
+def in_turns(label, fns: dict, calls: dict, card) -> dict:
+    """Time each function of ``fns`` (name -> fn) by the host clock in turns
+    a b b a (``calls[name]`` calls a turn, a warm-up call before the first
+    turn); print and return the ms a call of each turn."""
+    (a, fa), (b, fb) = fns.items()
+    for fn in (fa, fb):
+        fn()
+    times = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        t0 = time.perf_counter()
+        for _ in range(calls[name]):
+            fn()
+        times[name].append((time.perf_counter() - t0) * 1e3 / calls[name])
+    print(f"[transfer] {label}, in turns {a} / {b} / {b} / {a}, ms a call by the host clock: "
+          f"{a} {', '.join(f'{t:.4f}' for t in times[a])}; {b} {', '.join(f'{t:.4f}' for t in times[b])} ({card})")
+    return times
+
+
+def transfer_native_phase(cuda, card, bench, main, slice_run, first_decode_s) -> None:
+    """Phase 15: the transfer paths of decode() and encode() against the
+    resident paths and the CPU at full width, with decode()'s chunk sweep
+    and their times beside the resident paths' in turns; kernels 1 and 5 at
+    the shape of decode()'s chunk; every engine="native" entry point against
+    the card's output, with the native engine's rates on the card's host."""
+    import torch
+    import aad_tpu_torch as at
+    import aad_tpu_torch.codec.decoder as dec_mod
+    from aad_tpu_torch.codec.decoder import stream_bytes
+    from aad_tpu_torch.codec.encoder import as_int16
+    from aad_tpu_torch.constants import STEP_INDEX_MAX
+    from aad_tpu_torch.format.framing import block_codes, pad_to_blocks, parse_block_headers
+    from aad_tpu_torch.ops import cseman as cs, fused_decode as fd, lms
+    from aad_tpu_torch.ops.decode import compute_qdiffs_prefix
+
+    data, h, ref = bench["data"], bench["header"], bench["ref"]
+    geo = at.geometry_from_header(h.num_channels, h.bits_per_sample, h.block_size)
+    total = h.num_samples * h.num_channels
+    nblocks = -(-h.num_samples // h.num_samples_per_block)
+    chunk = dec_mod._TRANSFER_CHUNK_BLOCKS
+
+    def old_decode(stream, engine="fused", strict=True):
+        """decode() before its transfer path: the resident decode of a
+        pageable upload, brought back as int16 and widened on the host."""
+        buf = stream_bytes(stream)
+        header = at.decode_header(buf[: at.FILE_HEADER_SIZE].tobytes())
+        dec = at.Decoder.from_header(header, device="cuda", engine=engine)
+        return dec.decode_payload_ondevice(buf[at.FILE_HEADER_SIZE :], strict=strict).cpu().numpy().astype(np.int32)
+
+    # (a) decode(): bit-exact against the resident path and the CPU, at full width
+    cut = data[: len(data) - STREAM_PUSH]  # a lenient stream, cut inside a block
+    _, cut_ref = at.decode(cut, device="cpu", strict=False)
+    for engine in ("fused", "pallas"):
+        for label, stream, want, strict in (("bench stream", data, ref, True),
+                                            ("mid/side", bench["ms_data"], bench["ms_ref"], True),
+                                            ("cut, lenient", cut, cut_ref, False)):
+            _, got = at.decode(stream, device="cuda", engine=engine, strict=strict)
+            check(got.dtype == np.int32 and np.array_equal(got, want), f"decode() {label} {engine} != cpu")
+            check(np.array_equal(got, old_decode(stream, engine, strict)), f"decode() {label} {engine} != resident")
+    del got
+    print(f"[transfer] decode(device='cuda') in chunks of {chunk} blocks ({-(-nblocks // chunk)} for the bench "
+          f"stream): the bench stream, its mid/side variant and a lenient stream cut {STREAM_PUSH} bytes short, "
+          f"under both engines: == device='cpu' == the resident decode, bit-exact, int32")
+
+    # kernels 1 and 5 at the shape decode() gives them: its first chunk
+    blocks = pad_to_blocks(torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()), chunk,
+                           geo).to(cuda)
+    states = parse_block_headers(blocks, geo)
+    codes = block_codes(blocks, geo)
+    B, C, T = codes.shape
+    lanes = (codes, states.step_index.t().reshape(-1).contiguous(),
+             states.history.transpose(0, 1).reshape(-1, 4).contiguous(),
+             states.weight.transpose(0, 1).reshape(-1, 4).contiguous())
+    err1 = max_err(fd.decode_lanes(*lanes, 4), fd.decode_lanes_reference(*lanes, 4))
+    qdiffs = compute_qdiffs_prefix(codes.permute(2, 1, 0).reshape(T, C * B).contiguous(),
+                                   cs.clip(lanes[1], 0, STEP_INDEX_MAX), 4, dim=0)
+    err5 = max_err(lms.lms_lanes(qdiffs, lanes[2], lanes[3]), lms.lms_lanes_reference(qdiffs, lanes[2], lanes[3]))
+    check(err1 == 0 and err5 == 0, f"kernels at decode()'s chunk: max |err| {err1}, {err5}")
+    k1_ms = cuda_ms(lambda: fd.decode_lanes(*lanes, 4), KERNEL_ITERS)
+    k5_ms = cuda_ms(lambda: lms.lms_lanes(qdiffs, lanes[2], lanes[3]), KERNEL_ITERS)
+    print(f"[time] at decode()'s chunk, {C * B} lanes x {T} codes (the bench stream's first chunk): "
+          f"aad_decode_lanes {k1_ms:.4f} ms, aad_lms_lanes {k5_ms:.4f} ms a launch, both == plain, bit-exact ({card})")
+    del blocks, states, codes, lanes, qdiffs
+
+    # (b) decode()'s chunk sweep; (c) against the old expression in turns
+    sweep = []
+    try:
+        for cb in TRANSFER_CHUNKS:
+            dec_mod._TRANSFER_CHUNK_BLOCKS = cb
+            check(np.array_equal(at.decode(data, device="cuda")[1], ref), f"decode() in chunks of {cb} != cpu")
+            t0 = time.perf_counter()
+            for _ in range(TRANSFER_ITERS):
+                at.decode(data, device="cuda")
+            sweep.append((cb, (time.perf_counter() - t0) * 1e3 / TRANSFER_ITERS))
+    finally:
+        dec_mod._TRANSFER_CHUNK_BLOCKS = chunk
+    for cb, ms in sweep:
+        print(f"[sweep] decode() of the bench stream in chunks of {cb} blocks ({-(-nblocks // cb)} chunks): "
+              f"{ms:.4f} ms a call by the host clock, {total / (ms / 1e3):.6e} samples/s ({card})")
+    turns = in_turns("decode() of the bench stream", {"old": lambda: old_decode(data),
+                                                      "new": lambda: at.decode(data, device="cuda")},
+                     {"old": 3, "new": TRANSFER_ITERS}, card)
+    new_ms = min(turns["new"])
+    print(f"[time] transfer-inclusive decode(): {new_ms:.4f} ms, {total / (new_ms / 1e3):.6e} samples/s; the old "
+          f"expression {min(turns['old']):.4f} ms; the first call of the process (phase 5, pinned buffers "
+          f"allocated) {first_decode_s * 1e3:.4f} ms ({card})")
+    timeline("transfer-inclusive decode(), the bench stream", lambda: at.decode(data, device="cuda"), 3)
+    timeline("the old decode() expression, the bench stream", lambda: old_decode(data), 2)
+
+    # (d) encode(): against the resident path at full width, and in turns
+    cfg, pcm, seq_pcm = main["cfg"], main["pcm"], main["seq_pcm"]
+
+    def old_encode(x, parallel):
+        """encode() before its transfer path: a pageable upload, the resident
+        encode, a pageable download and a bytes copy."""
+        enc = at.Encoder.from_config(cfg, device="cuda", parallel_blocks=parallel)
+        x = torch.from_numpy(np.ascontiguousarray(as_int16(x))).to(cuda)
+        return at.encode_header(cfg.header_for(x.shape[1])) + enc.encode_payload_ondevice(x).cpu().numpy().tobytes()
+
+    check(old_encode(pcm, True) == main["par"], "parallel encode(): transfer path != resident")
+    check(old_encode(seq_pcm, False) == main["seq"], "sequential encode(): transfer path != resident")
+    print(f"[transfer] encode(device='cuda'), parallel (10 min) and sequential ({SEQ_SECONDS} s, "
+          f"{-(-seq_pcm.shape[1] // geo.num_samples_per_block)} blocks in chunks of 64): == the resident encode, "
+          f"bit-exact (and == the native engine and the plain version's prefix, phase 8)")
+    par_turns = in_turns("parallel encode() of the 10-minute signal",
+                         {"old": lambda: old_encode(pcm, True),
+                          "new": lambda: at.encode(pcm, cfg, device="cuda", parallel_blocks=True)},
+                         {"old": 3, "new": 3}, card)
+    seq_turns = in_turns(f"sequential encode() of {SEQ_SECONDS} s",
+                         {"old": lambda: old_encode(seq_pcm, False), "new": lambda: at.encode(seq_pcm, cfg, device="cuda")},
+                         {"old": 1, "new": 1}, card)
+    for label, times, n in (("parallel", par_turns, pcm.size), ("sequential", seq_turns, seq_pcm.size)):
+        print(f"[time] transfer-inclusive {label} encode(): {min(times['new']):.4f} ms, "
+              f"{n / (min(times['new']) / 1e3):.6e} samples/s; the old expression {min(times['old']):.4f} ms ({card})")
+    timeline("transfer-inclusive parallel encode(), 10 minutes",
+             lambda: at.encode(pcm, cfg, device="cuda", parallel_blocks=True), 2)
+    timeline("the old parallel encode() expression", lambda: old_encode(pcm, True), 2)
+    timeline(f"transfer-inclusive sequential encode(), {SEQ_SECONDS} s", lambda: at.encode(seq_pcm, cfg, device="cuda"), 1)
+
+    # (e) every engine="native" entry point against the card's output, and
+    # the native engine's rates on the card's host
+    def host_ms(fn, calls=1):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = fn()
+        return out, (time.perf_counter() - t0) * 1e3 / calls
+
+    (_, got), nat_dec_ms = host_ms(lambda: at.decode(data, engine="native"), 2)
+    check(got.dtype == np.int32 and np.array_equal(got, ref), "native decode != the card's")
+    check(np.array_equal(at.decode(bench["ms_data"], engine="native")[1], bench["ms_ref"]), "native mid/side")
+    check(np.array_equal(at.decode(bench["mono"], engine="native")[1], at.decode(bench["mono"], device="cuda")[1]),
+          "native mono 3-bit")
+    check(np.array_equal(at.decode(cut, engine="native", strict=False)[1], cut_ref), "native lenient")
+    try:
+        at.decode(cut, engine="native")
+        raise AssertionError("strict native decode of a cut stream did not raise")
+    except at.InsufficientDataError:
+        pass
+    seq_native, nat_seq_ms = host_ms(lambda: at.encode(seq_pcm, cfg, engine="native"))
+    check(seq_native == main["seq"], "native sequential encode != the card's")
+    par_native, nat_par_ms = host_ms(lambda: at.encode(pcm, cfg, engine="native", parallel_blocks=True))
+    check(par_native == main["par"], "native parallel encode != the card's")
+    se = at.StreamingEncoder(cfg, total_samples=seq_pcm.shape[1], engine="native")
+    parts, off, i = [se.header()], 0, 0
+    while off < seq_pcm.shape[1]:
+        parts.append(se.push(seq_pcm[:, off : off + STREAM_CHUNKS[i % len(STREAM_CHUNKS)]]))
+        off, i = off + STREAM_CHUNKS[i % len(STREAM_CHUNKS)], i + 1
+    check(b"".join(parts) + se.finish() == main["seq"], "native StreamingEncoder != the card's encode()")
+    sd = at.StreamingDecoder(engine="native")
+    got = np.concatenate([sd.push(data[j : j + STREAM_PUSH]) for j in range(0, len(data), STREAM_PUSH)], axis=1)
+    check(np.array_equal(got, ref), "native StreamingDecoder != the card's decode")
+    del got
+    pile = slice_run["pile"]
+    nat_batch, nat_db_ms = host_ms(lambda: at.decode_batch(pile, engine="native"))
+    card_batch, card_db_ms = host_ms(lambda: at.decode_batch(pile, device="cuda"), 2)
+    check(all(np.array_equal(a[1], b[1]) and a[1].dtype == b[1].dtype for a, b in zip(nat_batch, card_batch)),
+          "native decode_batch != the card's")
+    pile_samples = sum(p.size for _, p in card_batch)
+    del nat_batch, card_batch
+    streams = pile_streams(pcm, [PILE_TIME_SECONDS * RATE] * NATIVE_PILE, SEED + 9)
+    nat_eb, nat_eb_ms = host_ms(lambda: at.encode_batch(streams, cfg, engine="native"))
+    card_eb, card_eb_ms = host_ms(lambda: at.encode_batch(streams, cfg, device="cuda"), 2)
+    check(nat_eb == card_eb, "native encode_batch != the card's")
+    eb_samples = sum(s.size for s in streams)
+    print(f"[native] engine='native' on the card's host ({os.cpu_count()} cores): decode of the bench stream, its "
+          f"mid/side variant, mono 3-bit, a lenient cut stream (strict raises); the {SEQ_SECONDS}-s sequential and "
+          f"10-minute parallel encode; StreamingEncoder ({i} pushes) and StreamingDecoder; decode_batch of "
+          f"phase 11's four geometries; encode_batch of {NATIVE_PILE} streams of {PILE_TIME_SECONDS} s: "
+          f"== the card's output, bit-exact")
+    for label, n, nat, dev in (("decode of the bench stream", total, nat_dec_ms, new_ms),
+                               (f"sequential encode of {SEQ_SECONDS} s", seq_pcm.size, nat_seq_ms, min(seq_turns["new"])),
+                               ("parallel encode of 10 minutes", pcm.size, nat_par_ms, min(par_turns["new"])),
+                               ("decode_batch of 4 geometries", pile_samples, nat_db_ms, card_db_ms),
+                               (f"encode_batch of {NATIVE_PILE} streams of {PILE_TIME_SECONDS} s", eb_samples,
+                                nat_eb_ms, card_eb_ms)):
+        print(f"[native] {label}: native {nat:.4f} ms, {n / (nat / 1e3):.6e} samples/s; the card "
+              f"(transfer-inclusive) {dev:.4f} ms, {n / (dev / 1e3):.6e} samples/s ({card})")
+
+
 def batch_encode_phase(cuda, card, main) -> dict:
     """Phase 13: encode_batch on the card: the full-width pile against solo
     encodes, exactness cases against the CPU, and times."""
@@ -1301,12 +1572,15 @@ def cli_phase(cuda, card, main, bench, resident_ms) -> None:
         "-g": ["-g", wav_in, str(work / "g.wav")],
         "-c": ["-c", wav_in],
         "-i": ["-i", aad_in],
+        "-e native": ["-e", wav_in, str(work / "en.aad")],
+        "-d native": ["-d", aad_in, str(work / "dn.wav")],
     }
     env = {k: v for k, v in os.environ.items() if k not in ("AAD_TPU_PLATFORM", "AAD_TPU_ENGINE", "AAD_TPU_STRICT")}
+    engines = {"-d pallas": "pallas", "-e native": "native", "-d native": "native"}
     t0 = time.perf_counter()
     procs = {
         mode: subprocess.Popen([sys.executable, "-m", "aad_tpu_torch.cli", *argv], cwd=ROOT, text=True,
-                               env={**env, "AAD_TPU_ENGINE": "pallas"} if mode == "-d pallas" else env,
+                               env={**env, "AAD_TPU_ENGINE": engines[mode]} if mode in engines else env,
                                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for mode, argv in runs.items()
     }
@@ -1321,7 +1595,8 @@ def cli_phase(cuda, card, main, bench, resident_ms) -> None:
     for mode, ((out, err), rc) in results.items():
         check(rc == 0 and err == "", f"python -m aad_tpu_torch.cli {mode}: rc {rc}, stderr {err!r}")
     check((work / "e.aad").read_bytes() == want_aad, "cli -e != encode(device='cuda')")
-    for name in ("d", "dp", "r"):
+    check((work / "en.aad").read_bytes() == want_aad, "cli -e under AAD_TPU_ENGINE=native != encode(device='cuda')")
+    for name in ("d", "dp", "r", "dn"):
         fmt, got = read_wav(str(work / f"{name}.wav"))
         check(fmt.bits_per_sample == 16 and np.array_equal(got >> 16, want_pcm), f"cli {name}.wav != decode()")
     _, gap = read_wav(str(work / "g.wav"))
@@ -1333,10 +1608,10 @@ def cli_phase(cuda, card, main, bench, resident_ms) -> None:
     info = results["-i"][0][0]
     check(re.search(rf"Number of Samples per Channel:\s+{n}\b", info) is not None, f"cli -i: {info!r}")
     shutil.rmtree(work)
-    print(f"[cli] python -m aad_tpu_torch.cli -e/-d/-r/-g/-c/-i on a {CLI_SECONDS}-s stereo 16-bit WAV, and -d "
-          f"under AAD_TPU_ENGINE=pallas, as 7 processes at once in {cli_s:.3f} s: -e == encode(device='cuda'), "
-          f"-d/-r == decode(device='cuda'), -g == the residual, -c == in-process; -c printed "
-          f"{results['-c'][0][0].strip()!r}")
+    print(f"[cli] python -m aad_tpu_torch.cli -e/-d/-r/-g/-c/-i on a {CLI_SECONDS}-s stereo 16-bit WAV, -d "
+          f"under AAD_TPU_ENGINE=pallas, -e and -d under AAD_TPU_ENGINE=native, as {len(runs)} processes at once "
+          f"in {cli_s:.3f} s: -e (both) == encode(device='cuda'), -d (all three)/-r == decode(device='cuda'), "
+          f"-g == the residual, -c == in-process; -c printed {results['-c'][0][0].strip()!r}")
     print("[cli] -i: " + " | ".join(" ".join(line.split()) for line in info.splitlines()))
 
     reset_all_launches()
@@ -1378,11 +1653,17 @@ def main() -> int:
           f"cuda {torch.version.cuda} | {nvcc.stdout.strip().splitlines()[-1]} | "
           f"triton {'present' if importlib.util.find_spec('triton') else 'absent'}")
 
-    # 2. build
+    # 2. build: the kernels (one nvcc a source) and, beside them, the native host engine (the host compiler)
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(at.native.build)
+        lib_path = _build.build()
+        kernels_s = time.perf_counter() - t0
+        native_path = native_build.result()
     _build.library()
-    print(f"[build] {lib_path.relative_to(_build.BUILD_DIR.parents[1])} in {time.perf_counter() - t0:.3f} s")
+    at.native.library()
+    print(f"[build] {lib_path.relative_to(_build.BUILD_DIR.parents[1])} in {kernels_s:.3f} s; "
+          f"{native_path.relative_to(_build.BUILD_DIR.parents[1])} beside it, both in {time.perf_counter() - t0:.3f} s")
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "Used" in line or "spill" in line:
             print(f"[build] ptxas: {line.split('ptxas info    : ')[-1]}")
@@ -1570,6 +1851,9 @@ def main() -> int:
     # 14. the CLI and the utilities
     cli_phase(cuda, card, encoded, bench, resident_ms)
     stamp("14 CLI and utilities")
+    # 15. the transfer paths and the native engine
+    transfer_native_phase(cuda, card, bench, encoded, slice_run, main_s)
+    stamp("15 transfer paths and native engine")
 
     print(json.dumps({"kernels": records}))
     print(smi())

@@ -129,15 +129,36 @@ def test_pallas_engine_decodes_the_same(files, tmp_path, capsys, monkeypatch):
     assert got == want and got[0] == 0
 
 
+@pytest.mark.parametrize("case,strict", [
+    ("encode", "1"), ("encode mid/side 2-bit", "1"), ("encode mono 3-bit trials 1", "1"), ("decode", "1"),
+    ("decode a truncated file", "1"), ("decode a truncated file", "0"), ("reconstruct", "1"), ("gap", "1"),
+    ("calculate", "1"),
+])
+def test_native_engine_matches_aad_tpu(case, strict, files, tmp_path, capsys, monkeypatch):
+    """AAD_TPU_ENGINE=native runs the port's native host engine, as
+    aad_tpu's CLI runs its own: the same files, output and exit codes; a
+    truncated file fails strict and decodes under AAD_TPU_STRICT=0."""
+    env = {"AAD_TPU_ENGINE": "native", "AAD_TPU_STRICT": strict}
+    got, want = _both(CASES[case], files, tmp_path, capsys, monkeypatch, env)
+    assert got == want
+    assert (got[0] == 0) == (case != "decode a truncated file" or strict == "0")
+
+
 @pytest.mark.parametrize("env,message", [
-    ({"AAD_TPU_PLATFORM": "cpu", "AAD_TPU_ENGINE": "native"}, "not ported"),
+    ({"AAD_TPU_PLATFORM": "cpu", "AAD_TPU_ENGINE": "native"}, "did not build"),
     ({"AAD_TPU_PLATFORM": "cpu", "AAD_TPU_ENGINE": "scan"}, "expected one of"),
     ({}, "no CUDA device"),
 ])
 def test_knobs_that_cannot_run_fail_without_falling_back(env, message, files, tmp_path, capsys, monkeypatch):
+    """A native engine that does not build (no host compiler here), an
+    engine the port lacks, no card: each fails before any file is read."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.delenv("AAD_TPU_NATIVE_LIB", raising=False)
+    torch_cli.native_engine.library.cache_clear()
     rc, out, err, written = _run(torch_cli.main, ["-e", "{in}", "{out}"], files, tmp_path / "out", env,
                                  capsys, monkeypatch)
+    torch_cli.native_engine.library.cache_clear()
     assert rc == 1 and out == "" and message in err and written is None
 
 

@@ -206,7 +206,7 @@ def test_import_pulls_in_no_jax():
         " 'aad_tpu_torch.io', 'aad_tpu_torch.format.wav', 'aad_tpu_torch.codec.batch_encode',"
         " 'aad_tpu_torch.utils.quality', 'aad_tpu_torch.utils.debug', 'aad_tpu_torch.utils.profiling',"
         " 'aad_tpu_torch.utils.time_encode', 'aad_tpu_torch.cli', 'aad_tpu_torch.cliparse',"
-        " 'aad_tpu_torch.__main__'};"
+        " 'aad_tpu_torch.__main__', 'aad_tpu_torch.native', 'aad_tpu_torch.codec.transfer'};"
         "print(len(mods), bad, sorted(need - set(mods))); sys.exit(1 if bad or need - set(mods) else 0)"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

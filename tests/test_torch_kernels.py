@@ -121,6 +121,65 @@ def test_cuda_decode_matches_cpu(cuda, nch, ms, bps):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("engine", ["fused", "pallas"])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_cuda_transfer_decode_matches_cpu(cuda, monkeypatch, engine, chunk):
+    """decode()'s pinned, streamed path in chunks of 1, 7 (a ragged last
+    chunk) and 64 blocks (one pass), against device="cpu" and against the
+    resident decode, strict and lenient; then the same calls again in turns
+    with another stream, so that memory the allocator hands out again after
+    a call is seen to hold no stale data."""
+    from aad_tpu_torch.codec import decoder
+
+    monkeypatch.setattr(decoder, "_TRANSFER_CHUNK_BLOCKS", chunk)
+    streams = [_stream(2, False, 4), _stream(2, True, 4), _stream(1, False, 3)]
+    for data in streams + streams[::-1]:
+        h, got = aad_tpu_torch.decode(data, device="cuda", engine=engine)
+        _, want = aad_tpu_torch.decode(data, device="cpu", engine=engine)
+        assert got.dtype == np.int32 and got.shape == (h.num_channels, h.num_samples)
+        np.testing.assert_array_equal(got, want)
+        dec = aad_tpu_torch.Decoder.from_header(h, device="cuda", engine=engine)
+        resident = dec.decode_payload_ondevice(np.frombuffer(data, np.uint8)[aad_tpu_torch.FILE_HEADER_SIZE:])
+        np.testing.assert_array_equal(got, resident.cpu().numpy())
+        cut = data[:-1500]
+        _, got = aad_tpu_torch.decode(cut, device="cuda", engine=engine, strict=False)
+        np.testing.assert_array_equal(got, aad_tpu_torch.decode(cut, device="cpu", engine=engine, strict=False)[1])
+
+
+@pytest.mark.parametrize("parallel", [False, True])
+def test_cuda_transfer_encode_matches_cpu(cuda, monkeypatch, parallel):
+    """encode()'s pinned, streamed path: the sequential mode in 5 chunks of
+    2 blocks (uploads beside kernel 3, bytes down chunk by chunk) and the
+    parallel mode in one pass, against device="cpu" and the resident encode,
+    twice in turns with another signal."""
+    from aad_tpu_torch.codec import encoder
+
+    monkeypatch.setattr(encoder, "_OVERLAP_MIN_BLOCKS", 3)
+    monkeypatch.setattr(encoder, "_OVERLAP_CHUNK_BLOCKS", 2)
+    cfg = aad_tpu_torch.EncodeConfig(2, 16000, 4, 96, 1, 2)
+    n = 10 * cfg.geometry().num_samples_per_block - 7
+    rng = np.random.default_rng(5)
+    signals = [rng.integers(-20000, 20000, (2, n)).astype(np.int32) for _ in range(2)]
+    kw = dict(parallel_blocks=parallel, parallel_chunk_blocks=2 if parallel else 1)
+    for pcm in signals + signals[::-1]:
+        got = aad_tpu_torch.encode(pcm, cfg, device="cuda", **kw)
+        assert got == aad_tpu_torch.encode(pcm, cfg, device="cpu", **kw)
+        enc = aad_tpu_torch.Encoder.from_config(cfg, device="cuda", **kw)
+        resident = enc.encode_payload_ondevice(torch.from_numpy(pcm.astype(np.int16)).to(cuda))
+        assert got[aad_tpu_torch.FILE_HEADER_SIZE:] == resident.cpu().numpy().tobytes()
+
+
+def test_native_engine_matches_the_card(cuda):
+    cfg = aad_tpu_torch.EncodeConfig(2, 48000, 4, 1024, 0, 2)
+    pcm = np.random.default_rng(3).integers(-20000, 20000, (2, 9 * 992 - 3)).astype(np.int32)
+    data = aad_tpu_torch.encode(pcm, cfg, device="cuda")
+    assert data == aad_tpu_torch.encode(pcm, cfg, engine="native")
+    assert aad_tpu_torch.encode(pcm, cfg, device="cuda", parallel_blocks=True) == aad_tpu_torch.encode(
+        pcm, cfg, engine="native", parallel_blocks=True)
+    np.testing.assert_array_equal(aad_tpu_torch.decode(data, engine="native")[1],
+                                  aad_tpu_torch.decode(data, device="cuda")[1])
+
+
 @pytest.mark.parametrize("bps", [2, 3, 4])
 @pytest.mark.parametrize("L,T", [(1000, 300), (257, 988), *((B * C, T) for B, C, T in EDGE_SHAPES)])
 def test_lms_lanes_kernel_matches_plain(cuda, bps, L, T):
