@@ -31,6 +31,10 @@ Public surface:
                                          of aad_tpu's aadx.cc), also engine="native"
                                          of the entry points above
     python -m aad_tpu_torch.cli       -> the reference CLI's six modes
+    parallel.sharded                  -> make_mesh, decode_blocks_sharded,
+                                         encode_streams_sharded,
+                                         encode_blocks_parallel_sharded, gather:
+                                         a (dp, sp) mesh of this process's devices
 
 ``device="cuda"`` runs the CUDA kernels (built with nvcc at first use);
 ``device="cpu"`` runs their plain torch versions. The decode ``engine`` is

@@ -15,9 +15,15 @@ phase A with an associative scan, which is :func:`compute_qdiffs_prefix`
 here, the phase A of the two-phase ``pallas`` engine; the loop
 :func:`compute_qdiffs` is its plain version. Bit-exact with the reference
 decoder (reference: src/aad_decoder.c:269-318, 321-475).
+
+:func:`decode_blocks_reference` is the plain block decode, the oracle of
+kernel 1; :func:`decode_blocks` decodes the same lanes by an engine, through
+the kernels' wrappers (the codes-level API of ``aad_tpu.ops.decode``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -84,6 +90,9 @@ def lms_scan(qdiffs: torch.Tensor, history0: torch.Tensor, weight0: torch.Tensor
     return torch.stack(samples, dim=-1) if samples else qdiffs.to(torch.int32)
 
 
+ENGINES = ("auto", "fused", "pallas")
+
+
 def decode_blocks(
     codes: torch.Tensor,
     step_index: torch.Tensor,
@@ -91,8 +100,51 @@ def decode_blocks(
     history: torch.Tensor,
     *,
     bits_per_sample: int,
+    engine: str = "auto",
 ) -> torch.Tensor:
-    """Decode a dense batch of independent block tasks.
+    """Decode a dense batch of independent block tasks by ``engine``, as
+    ``aad_tpu.ops.decode.decode_blocks`` does.
+
+    ``"auto"``/``"fused"`` run the lanes through kernel 1
+    (``ops.fused_decode.decode_lanes``) as (L, 1, T) codes, whose lane order
+    is theirs; ``"pallas"`` runs phase A (:func:`compute_qdiffs_prefix`) on
+    time-major codes and phase B through the LMS kernel (``ops.lms``). The
+    wrappers run their plain versions on a CPU tensor and launch the kernel
+    on a CUDA tensor. Shapes and output as :func:`decode_blocks_reference`;
+    an engine outside :data:`ENGINES` raises ValueError.
+    """
+    # the wrappers' plain versions live in this module
+    from .fused_decode import decode_lanes, stepsize_corrections
+    from .lms import lms_lanes
+
+    if engine not in ENGINES:
+        raise ValueError(f"unknown decode engine {engine!r}; expected one of {ENGINES}")
+    *lanes, T = codes.shape
+    L = math.prod(lanes)
+    step_index = cs.clip(step_index, 0, STEP_INDEX_MAX).reshape(L).to(torch.int32).contiguous()
+    history = history.reshape(L, FILTER_ORDER).to(torch.int32).contiguous()
+    weight = weight.reshape(L, FILTER_ORDER).to(torch.int32).contiguous()
+    codes = codes.reshape(L, T)
+    if engine == "pallas":
+        qdiffs = compute_qdiffs_prefix(codes.t().contiguous(), step_index, bits_per_sample, dim=0)
+        rows = lms_lanes(qdiffs, history, weight)
+    else:
+        stepsize_corrections(codes.device)  # probes the kernel's table once per process and card
+        rows = decode_lanes(codes.to(torch.uint8).reshape(L, 1, T).contiguous(), step_index, history, weight,
+                            bits_per_sample)
+    return rows.to(torch.int32).reshape(*lanes, T + FILTER_ORDER)
+
+
+def decode_blocks_reference(
+    codes: torch.Tensor,
+    step_index: torch.Tensor,
+    weight: torch.Tensor,
+    history: torch.Tensor,
+    *,
+    bits_per_sample: int,
+) -> torch.Tensor:
+    """Decode a dense batch of independent block tasks: the plain version, on
+    any device.
 
     Args:
       codes:      (..., T) uint8/int codes (lane shape = blocks x channels ...).

@@ -296,23 +296,8 @@ def encode_blocks_parallel(
     Returns:
       (headers with leaves (B, *lanes[, 4]), codes (B, *lanes, T) uint8).
     """
-    c = max(int(chunk_blocks), 1)
-    B, *lane_axes, nspb = blocks.shape
-    Bp = -(-B // c) * c
-    va = _lane_valid(valid, B, lane_axes, blocks.device)
-    if Bp > B:  # pad with valid=0 blocks, dropped below
-        blocks = torch.cat([blocks, blocks.new_zeros((Bp - B, *blocks.shape[1:]))])
-        va = torch.cat([va, va.new_zeros((Bp - B, *va.shape[1:]))])
-    G = Bp // c
-
-    def to_chunks(x):  # (Bp, ...) -> (c, G, ...): step j is block g*c + j of chunk g
-        return x.reshape(G, c, *x.shape[1:]).transpose(0, 1)
-
-    def from_chunks(x):
-        return x.transpose(0, 1).reshape(Bp, *x.shape[2:])[:B]
-
-    xs, vs = to_chunks(blocks), to_chunks(va)
-    warm = c > 1  # the chunk-internal previous-block warm-up
+    xs, vs, from_chunks = to_chunks(blocks, valid, chunk_blocks)
+    warm = xs.shape[0] > 1  # the chunk-internal previous-block warm-up
     carry = None
     for _ in range(warm_passes):
         st = parallel_warm_states(xs, vs, bits_per_sample, carry=carry, warm_on_prev=warm, stream=stream)
@@ -321,6 +306,32 @@ def encode_blocks_parallel(
         xs, vs, bits_per_sample, num_trials, carry=carry, warm_on_prev=warm, need_carry=False
     )
     return BlockHeaderFields(*(from_chunks(f) for f in headers)), from_chunks(codes)
+
+
+def to_chunks(blocks: torch.Tensor, valid, chunk_blocks: int):
+    """The block-parallel mode's layout: (B, *lanes, nspb) blocks in chunks of c.
+
+    Pads B to a multiple of c with valid-0 blocks. Returns (xs (c, G,
+    *lanes, nspb), vs (c, G, *lanes) int32, from_chunks): step j of chunk g
+    is block g*c + j, and ``from_chunks`` maps a (c, G, ...) result back to
+    (B, ...), the padding dropped.
+    """
+    c = max(int(chunk_blocks), 1)
+    B, *lane_axes, nspb = blocks.shape
+    Bp = -(-B // c) * c
+    va = _lane_valid(valid, B, lane_axes, blocks.device)
+    if Bp > B:
+        blocks = torch.cat([blocks, blocks.new_zeros((Bp - B, *blocks.shape[1:]))])
+        va = torch.cat([va, va.new_zeros((Bp - B, *va.shape[1:]))])
+    G = Bp // c
+
+    def chunks(x):
+        return x.reshape(G, c, *x.shape[1:]).transpose(0, 1)
+
+    def from_chunks(x):
+        return x.transpose(0, 1).reshape(Bp, *x.shape[2:])[:B]
+
+    return chunks(blocks), chunks(va), from_chunks
 
 
 def parallel_warm_states(

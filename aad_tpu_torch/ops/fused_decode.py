@@ -32,7 +32,7 @@ import torch
 from ..constants import FILTER_ORDER, STEPSIZE_TABLE_SIZE, TABLES_FLOAT_DIGITS
 from ..tables import STEPSIZE_TABLE
 from . import _build
-from .decode import decode_blocks
+from .decode import decode_blocks_reference
 from .transitions import index_table, stepsize_from_index, stepsize_table
 
 DECODE_KERNEL = "aad_decode_lanes"
@@ -69,7 +69,7 @@ def decode_lanes_reference(
     """
     B, C, T = codes.shape
     lanes = codes.transpose(0, 1).reshape(C * B, T)  # lane c * B + b: channel c of block b
-    samples = decode_blocks(lanes, step_index, weight, history, bits_per_sample=bits_per_sample)
+    samples = decode_blocks_reference(lanes, step_index, weight, history, bits_per_sample=bits_per_sample)
     return samples.to(torch.int16)
 
 

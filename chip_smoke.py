@@ -2,6 +2,7 @@
 """Smoke run of aad_tpu_torch's decode and encode paths on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharding   # phases 1, 2 and 16 only, for a host with several cards
 
 Run from the repository root on a machine with a CUDA card (written for an
 H100), nvcc and PyTorch. It imports nothing of JAX or ``aad_tpu``. Phases, in
@@ -116,7 +117,21 @@ failure exits non-zero:
    share); every ``engine="native"`` entry point (decode strict and
    lenient, mid/side, mono 3-bit, both encodes, both streaming classes,
    both batches) against the card's output, with the native engine's rates
-   on the card's host beside the card's.
+   on the card's host beside the card's;
+16. ``parallel/sharded.py`` on meshes of 4 shards, (2, 2), and 8, (4, 2),
+   on one card (and of every card, where there are several): the sharded
+   decode of the bench stream's lanes under both engines against the
+   unsharded ``ops.decode.decode_blocks`` and the resident ``Decoder``
+   decode; the sharded stream encode of phase 13's timed pile (2,048 stereo
+   streams of 2 s), with and without its RMSE statistic, against the
+   unsharded kernel-3 call on its 4,096 lanes, the statistic against a
+   float64 host RMSE and the sharded decode of its codes against the
+   unsharded one; the sequence-parallel encode of the 10-minute signal
+   (chunks of 1 and no warm pass, chunks of 4 and one) against the
+   unsharded ``encode_blocks_parallel`` and, assembled, the bytes of
+   ``encode(..., parallel_blocks=True)``; for each, the launches (one a
+   non-empty shard), the host syncs inside a call under ``torch.profiler``
+   (none allowed) and the time beside the unsharded call's, in turns.
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -1633,6 +1648,232 @@ def cli_phase(cuda, card, main, bench, resident_ms) -> None:
           f"samples/s, {rep.seconds_per_iter * 1e3:.4f} ms a call against phase 6's {resident_ms:.4f} ms ({card})")
 
 
+def all_devices_ms(fn, iters) -> float:
+    """Mean host-clock ms of ``fn`` over ``iters`` calls, every card
+    synchronised before and after: for work spread over several cards,
+    which one card's CUDA events do not cover."""
+    import torch
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def turns_ms(fns: dict, iters: int, timer) -> dict:
+    """Each of two functions (name -> fn) timed by ``timer(fn, iters)`` in
+    turns a b b a, after one warm-up call each; the ms a call of each turn."""
+    (a, fa), (b, fb) = fns.items()
+    for fn in (fa, fb):
+        fn()
+    times = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        times[name].append(timer(fn, iters))
+    return times
+
+
+def host_syncs(fn) -> tuple[int, int]:
+    """(synchronising CUDA runtime calls, CUDA runtime calls) that
+    torch.profiler sees inside one call of ``fn``, after a warm-up call:
+    ``cuda*Synchronize`` and the synchronous ``cudaMemcpy``."""
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("sharded call"):
+            fn()
+    torch.cuda.synchronize()
+    events = prof.events()
+    window = next(e.time_range for e in events if e.name == "sharded call")
+    runtime = [e.name for e in events if e.name.startswith("cuda")
+               and window.start <= e.time_range.start <= window.end]
+    syncs = [n for n in runtime if n.endswith("Synchronize") or n == "cudaMemcpy"]
+    return len(syncs), len(runtime)
+
+
+def sharding_phase(cuda, card, bench, main) -> dict:
+    """Phase 16: ``parallel/sharded.py`` at full width on meshes of 4 and 8
+    shards on one card (and of every card, where there are several): each
+    sharded call against its unsharded counterpart on the card, its
+    launches, the host syncs inside it and its time in turns. Returns the
+    launches of the checked calls by kernel."""
+    import torch
+    import aad_tpu_torch as at
+    from aad_tpu_torch.codec.batch_encode import _stage
+    from aad_tpu_torch.codec.encoder import _block_bytes, _pad_to_blocks, payload_size
+    from aad_tpu_torch.ops import fused_decode as fd, fused_encode as fe, lms
+    from aad_tpu_torch.ops.decode import decode_blocks
+    from aad_tpu_torch.ops.encode import encode_blocks_parallel
+    from aad_tpu_torch.parallel import sharded as ts
+
+    meshes = {"4 shards (2, 2) on cuda:0": ts.make_mesh(4, devices=[cuda] * 4),
+              "8 shards (4, 2) on cuda:0": ts.make_mesh(8, devices=[cuda] * 8)}
+    check([m.devices.shape for m in meshes.values()] == [(2, 2), (4, 2)], "mesh shapes")
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        meshes[f"{cards} cards"] = ts.make_mesh()
+    else:
+        print("[shard] one card only: every mesh of this phase places its shards on cuda:0")
+    counts = {}
+
+    def counted(fn):
+        """fn() with every launch count from 0: (its result, its launches)."""
+        reset_all_launches()
+        out = fn()
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+        got = {k: v for k, v in all_launches().items() if v}
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return out, got
+
+    def nonempty(n, mesh):
+        return sum(b > a for a, b in ts._pieces(n, mesh.size))
+
+    def on_mesh(shards, mesh):
+        check([s.device for s in shards] == mesh.shard_devices, "a shard off its mesh device")
+
+    def timer(mesh):
+        return cuda_ms if set(mesh.shard_devices) == {cuda} else all_devices_ms
+
+    def report(label, mesh_label, mesh, times, got, syncs):
+        check(syncs[0] == 0, f"{label}, {mesh_label}: {syncs[0]} host syncs inside the sharded call")
+        u, s = times["unsharded"], times["sharded"]
+        print(f"[shard] {label}, {mesh_label}: unsharded {u[0]:.4f} / {u[1]:.4f} ms, sharded {s[0]:.4f} / "
+              f"{s[1]:.4f} ms in turns ({'CUDA events' if timer(mesh) is cuda_ms else 'host clock, every card'}"
+              f"), {min(s) / min(u):.2f}x; launches a call {got}; host syncs inside the call {syncs[0]} of "
+              f"{syncs[1]} CUDA runtime calls ({card})")
+
+    # (a) decode: the bench stream's 58,066 lanes x 988 codes, both engines
+    h = bench["header"]
+    dec = at.Decoder.from_header(h, device="cuda")
+    framed = dec.frame(np.frombuffer(bench["data"], np.uint8)[at.FILE_HEADER_SIZE:].copy())
+    resident = dec.decode_framed(framed)  # (C, N) int32
+    B, C, T = framed.codes.shape
+    L, nspb = B * C, T + 4
+    lanes = (framed.codes.reshape(L, T), framed.states.step_index.reshape(L),
+             framed.states.weight.reshape(L, 4), framed.states.history.reshape(L, 4))
+    for engine, kernel in (("fused", fd.DECODE_KERNEL), ("pallas", lms.LMS_KERNEL)):
+        unsharded = decode_blocks(*lanes, bits_per_sample=4, engine=engine)
+        rows = unsharded.reshape(B, C, nspb).transpose(0, 1).reshape(C, B * nspb)[:, : h.num_samples]
+        check(torch.equal(rows, resident), f"unsharded decode_blocks ({engine}) != the resident Decoder decode")
+        for label, mesh in meshes.items():
+            if engine == "fused" and mesh is meshes[next(iter(meshes))]:
+                fd._probe_corrections.cache_clear()  # as in a new process: a card's first decode probes its table
+            out, got = counted(lambda: ts.decode_blocks_sharded(*lanes, bits_per_sample=4, mesh=mesh, engine=engine))
+            check(got.get(kernel) == nonempty(L, mesh), f"sharded decode ({engine}, {label}) launches {got}")
+            on_mesh(out, mesh)
+            check(torch.equal(ts.gather(out, cuda), unsharded), f"sharded decode ({engine}, {label}) != unsharded")
+            del out
+            print(f"[shard] decode_blocks_sharded engine={engine}, {L} lanes x {T} codes, {label}: == unsharded "
+                  f"decode_blocks on the card == the resident Decoder decode, bit-exact; launches {got}")
+            fn = functools.partial(ts.decode_blocks_sharded, *lanes, bits_per_sample=4, mesh=mesh, engine=engine)
+            times = turns_ms({"unsharded": functools.partial(decode_blocks, *lanes, bits_per_sample=4, engine=engine),
+                              "sharded": fn}, DECODE_ITERS if engine == "fused" else 2, timer(mesh))
+            report(f"decode ({engine})", label, mesh, times, got, host_syncs(fn))
+    del unsharded, rows, resident, framed, dec, lanes
+
+    # (b) stream encode: phase 13's timed pile, 2,048 stereo streams of 2 s
+    cfg, pcm = main["cfg"], main["pcm"]
+    geo = cfg.geometry()
+    nspb = geo.num_samples_per_block
+    n = PILE_TIME_SECONDS * RATE
+    two = pile_streams(pcm, [n] * max(PILE_SIZES), SEED + 20)
+    S, nb = len(two), -(-n // nspb)
+    pile = _stage(two, nb * nspb, cuda).reshape(S, 2, nb, nspb).transpose(1, 2)  # (S, B, C, nspb) int16
+    valid = torch.clamp(n - torch.arange(nb, device=cuda) * nspb, 0, nspb).to(torch.int32).expand(S, nb)
+    bps, trials = cfg.bits_per_sample, cfg.num_encode_trials
+    uh, uc, _ = fe.encode_stream(pile.transpose(0, 1), valid.t()[..., None], bps, trials, need_carry=False)
+    uh = type(uh)(*(f.transpose(0, 1) for f in uh))
+    uc = uc.transpose(0, 1)  # (S, B, C, T)
+    # the statistic's reference: integer squared errors summed exactly on the card, the RMSE in float64 on the host
+    recon = decode_blocks(uc, uh.step_index, uh.weight, uh.history, bits_per_sample=bps)
+    live = (torch.arange(nspb, device=cuda) < valid[..., None, None]).expand(recon.shape)
+    sse = int(torch.where(live, (recon - pile).to(torch.int64) ** 2, 0).sum())
+    want_rmse = float(np.sqrt(sse / 32768.0**2 / int(live.sum())))
+    del live
+    for label, mesh in meshes.items():
+        for stat in (False, True):
+            (hs, codes, rmse), got = counted(lambda: ts.encode_streams_sharded(
+                pile, valid, bits_per_sample=bps, num_trials=trials, mesh=mesh, stat=stat))
+            shards = nonempty(S, mesh)
+            want = {fe.STREAM_KERNEL: shards, **({fd.DECODE_KERNEL: shards} if stat else {})}
+            check(got == want, f"sharded stream encode ({label}, stat={stat}) launches {got}")
+            on_mesh(codes, mesh)
+            check(torch.equal(ts.gather(codes, cuda), uc), f"sharded stream encode ({label}) codes != unsharded")
+            check(all(torch.equal(a, b) for a, b in zip(ts.gather(hs, cuda), uh)),
+                  f"sharded stream encode ({label}) headers != unsharded")
+            line = f"[shard] encode_streams_sharded stat={stat}, {S} stereo streams x {nb} blocks, {label}: " \
+                   f"== the unsharded kernel-3 call on {2 * S} lanes, bit-exact"
+            if stat:
+                rel = abs(float(rmse) - want_rmse) / want_rmse
+                check(rmse.device == mesh.shard_devices[0] and rel < 1e-5, f"stat {float(rmse)} != {want_rmse}")
+                line += f"; RMSE {float(rmse):.9f} against the float64 host RMSE {want_rmse:.9f} (relative {rel:.2e})"
+                # the round trip: the sharded decode of the codes, lanes S * B * C
+                flat = ts.gather(codes, cuda).reshape(-1, nspb - 4)
+                hdr = ts.gather(hs, cuda)
+                out = ts.decode_blocks_sharded(flat, hdr.step_index.reshape(-1), hdr.weight.reshape(-1, 4),
+                                               hdr.history.reshape(-1, 4), bits_per_sample=bps, mesh=mesh)
+                check(torch.equal(ts.gather(out, cuda).reshape(recon.shape), recon),
+                      f"round trip ({label}): the sharded decode of the codes != the unsharded decode")
+                line += f"; round trip: the sharded decode of its {flat.shape[0]} lanes == unsharded"
+                del flat, hdr, out
+            print(line + f"; launches {got}")
+            fn = functools.partial(ts.encode_streams_sharded, pile, valid, bits_per_sample=bps, num_trials=trials,
+                                   mesh=mesh, stat=stat)
+            unsharded_fn = functools.partial(fe.encode_stream, pile.transpose(0, 1), valid.t()[..., None], bps,
+                                             trials, need_carry=False)
+            times = turns_ms({"unsharded": unsharded_fn, "sharded": fn}, 1, timer(mesh))
+            report(f"stream encode (stat={stat})", label, mesh, times, got, host_syncs(fn))
+            del hs, codes, rmse
+    del pile, valid, uh, uc, recon
+
+    # (c) sequence-parallel encode: the 10-minute signal, one stream
+    N = pcm.shape[1]
+    blocks, valid = _pad_to_blocks(torch.from_numpy(pcm).to(cuda), geo, 0, -(-N // nspb))
+    nblocks = blocks.shape[0]
+    want_bytes = {(1, 0): main["par"],
+                  (4, 1): at.encode(pcm, cfg, device="cuda", parallel_blocks=True, parallel_chunk_blocks=4,
+                                    parallel_warm_passes=1)}
+    for (c, wp), whole in want_bytes.items():
+        kw = dict(chunk_blocks=c, warm_passes=wp)
+        uh, uc = encode_blocks_parallel(blocks, valid, bps, trials, stream=fe.encode_stream, **kw)
+        for label, mesh in meshes.items():
+            (hs, codes), got = counted(lambda: ts.encode_blocks_parallel_sharded(
+                blocks, valid, bits_per_sample=bps, num_trials=trials, mesh=mesh, **kw))
+            check(got == {fe.STREAM_KERNEL: (wp + 1) * nonempty(-(-nblocks // c), mesh)},
+                  f"sequence-parallel encode ({label}, {kw}) launches {got}")
+            on_mesh(codes, mesh)
+            gh, gc = ts.gather(hs, cuda), ts.gather(codes, cuda)
+            check(torch.equal(gc, uc) and all(torch.equal(a, b) for a, b in zip(gh, uh)),
+                  f"sequence-parallel encode ({label}, {kw}) != unsharded encode_blocks_parallel")
+            payload = _block_bytes(gh, gc, geo).reshape(-1)[: payload_size(geo, N)].cpu().numpy().tobytes()
+            check(whole == at.encode_header(cfg.header_for(N)) + payload,
+                  f"sequence-parallel encode ({label}, {kw}) bytes != encode(parallel_blocks=True)")
+            print(f"[shard] encode_blocks_parallel_sharded chunks of {c}, {wp} warm passes, {nblocks} blocks, "
+                  f"{label}: == unsharded encode_blocks_parallel on the card, bit-exact; assembled, == encode("
+                  f"device='cuda', parallel_blocks=True, parallel_chunk_blocks={c}, parallel_warm_passes={wp}) "
+                  f"({len(whole)} bytes); launches {got}")
+            fn = functools.partial(ts.encode_blocks_parallel_sharded, blocks, valid, bits_per_sample=bps,
+                                   num_trials=trials, mesh=mesh, **kw)
+            unsharded_fn = functools.partial(encode_blocks_parallel, blocks, valid, bps, trials,
+                                             stream=fe.encode_stream, **kw)
+            times = turns_ms({"unsharded": unsharded_fn, "sharded": fn}, ENCODE_ITERS, timer(mesh))
+            report(f"sequence-parallel encode (chunks of {c}, {wp} warm passes)", label, mesh, times, got,
+                   host_syncs(fn))
+            del hs, codes, gh, gc
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1668,6 +1909,18 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print(f"[build] ptxas: {line.split('ptxas info    : ')[-1]}")
 
+    if sys.argv[1:] == ["--sharding"]:
+        # phase 16 alone, for a host with several cards: its inputs as phases 5 and 8 make them
+        cfg = at.EncodeConfig(2, RATE, 4, 1024, 0, 2)
+        pcm = bench_pcm(RATE * SECONDS)
+        data, header = bench_stream(RATE * SECONDS)
+        encoded = dict(cfg=cfg, pcm=pcm, par=at.encode(pcm, cfg, device="cuda", parallel_blocks=True))
+        every = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                               capture_output=True, text=True, check=True).stdout.strip().replace("\n", "; ")
+        print(f"[shard] {torch.cuda.device_count()} cards: {every}")
+        print(json.dumps({"sharding_launches": sharding_phase(cuda, card, dict(data=data, header=header), encoded)}))
+        stamp("16 sharding")
+        return 0
     # 3. probe
     probe = fd.stepsize_probe(cuda)
     torch.cuda.synchronize()
@@ -1854,6 +2107,11 @@ def main() -> int:
     # 15. the transfer paths and the native engine
     transfer_native_phase(cuda, card, bench, encoded, slice_run, main_s)
     stamp("15 transfer paths and native engine")
+    # 16. sharding; its checked calls' launches join kernels 1, 2, 3 and 5's counts
+    shard_counts = sharding_phase(cuda, card, bench, encoded)
+    for record in records:
+        record["launches"] += shard_counts.get(record["name"], 0)
+    stamp("16 sharding")
 
     print(json.dumps({"kernels": records}))
     print(smi())

@@ -83,6 +83,28 @@ def test_decode_blocks_matches_scan_engine(bps):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("engine", ["auto", "fused", "pallas"])
+@pytest.mark.parametrize("bps", [2, 3, 4])
+def test_decode_blocks_engines_match_scan_engine(bps, engine):
+    """decode_blocks by each engine (through the kernels' wrappers, plain on
+    a CPU tensor) == decode_blocks_reference == aad_tpu's scan engine, on
+    (B, C) lanes with int32 codes and step indices up to 4095 (the clamp)."""
+    codes, si, wt, hi = _lanes(60 + bps, 3 * 2 * 5, 50, bps)
+    codes = codes.astype(np.int32).reshape(3, 10, 50)
+    si, wt, hi = si.reshape(3, 10), wt.reshape(3, 10, 4), hi.reshape(3, 10, 4)
+    want = np.asarray(jd.decode_blocks(
+        jnp.asarray(codes), jnp.asarray(si), jnp.asarray(wt), jnp.asarray(hi),
+        bits_per_sample=bps, engine="scan",
+    ))
+    ref = td.decode_blocks_reference(*_t(codes, si, wt, hi), bits_per_sample=bps)
+    got = td.decode_blocks(*_t(codes, si, wt, hi), bits_per_sample=bps, engine=engine)
+    assert got.dtype == torch.int32 and got.shape == (3, 10, 54)
+    np.testing.assert_array_equal(ref.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="unknown decode engine"):
+        td.decode_blocks(*_t(codes, si, wt, hi), bits_per_sample=bps, engine="scan")
+
+
 @pytest.mark.parametrize("bps", [2, 3, 4])
 def test_decode_blocks_matches_fused_pallas_interpret(bps):
     """Plain decode_blocks == the fused Pallas kernel, interpret mode, one tile."""
