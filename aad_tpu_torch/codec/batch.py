@@ -7,9 +7,10 @@ block size, mid/side); each group's blocks are stacked into one byte batch,
 uploaded once and decoded by one launch (``Decoder``'s device pipeline).
 
 Not carried over from ``aad_tpu.codec.batch``: the bucketing of the group's
-block count, which exists only to reuse jit compiles, and the u32 wire
-words. ``engine="native"`` runs the native host engine, one stream a
-thread (``aad_tpu_torch.native.decode_batch``).
+block count, which exists only to reuse jit compiles, and the u32 view of
+the wire's bytes (the kernel reads the bytes as they are).
+``engine="native"`` runs the native host engine, one stream a thread
+(``aad_tpu_torch.native.decode_batch``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from .. import native as native_engine
 from ..constants import CH_PROCESS_MS, FILE_HEADER_SIZE
-from ..format.framing import block_codes, pad_to_blocks, parse_block_headers
+from ..format.framing import pad_to_blocks, parse_block_headers
 from ..format.geometry import geometry_from_header, num_blocks_for
 from ..format.header import HeaderInfo, decode_header, validate_header
 from ..ops.fused_decode import stepsize_corrections
@@ -78,7 +79,7 @@ def decode_batch(
             start += nb
         blocks = torch.cat(rows).to(device)
         pcm = _decode_lanes_pcm(
-            block_codes(blocks, geo), parse_block_headers(blocks, geo), header, start * nspb, engine
+            blocks, parse_block_headers(blocks, geo), header, start * nspb, engine, geo
         ).cpu().numpy()  # (C, start * nspb) int16
         for i, (b0, n) in zip(idxs, spans):
             results[i] = (parsed[i][0], pcm[:, b0 * nspb : b0 * nspb + n])

@@ -4,8 +4,8 @@ The pipeline (reference behaviour: src/aad_decoder.c:478-538):
 
     bytes --host--> file header + geometry
           --H2D---> payload as uint8
-          --device: torch ops--> block split, header parse, code unpack
-                                 to (B, C, T)
+          --device: torch ops--> block split to (B, block_size) rows,
+                                 header parse
           --device: kernel-----> (C*B, nspb) int16 rows
           --device: torch ops--> mid/side combine, (C, N) view
 
@@ -13,13 +13,14 @@ Two engines give the rows, with ``aad_tpu``'s names, so that code written
 against ``aad_tpu`` selects the same algorithm:
 
 * ``"fused"`` (and ``"auto"``): one kernel does the whole recurrence,
-  reading the unpacked (B, C, T) codes as they are (``ops.fused_decode``,
-  ``csrc/decode.cu``);
+  reading the codes packed from each block row's data region, as they lie
+  on the wire (``ops.fused_decode``, ``csrc/decode.cu``);
 * ``"pallas"``: the two-phase engine, phase A (step indices, step sizes and
   quantised differences) as a log-depth scan of torch ops
-  (``ops.decode.compute_qdiffs_prefix``) over the codes reordered to
-  (T, C*B) time-major lanes, then phase B, the LMS recurrence, as a kernel
-  (``ops.lms``, ``csrc/lms.cu``).
+  (``ops.decode.compute_qdiffs_prefix``) over the codes unpacked
+  (``framing.block_codes``) and reordered to (T, C*B) time-major lanes,
+  then phase B, the LMS recurrence, as a kernel (``ops.lms``,
+  ``csrc/lms.cu``).
 
 Every block x channel lane decodes independently (the block header carries
 the full state), so the whole file is one kernel launch. Lanes are in
@@ -122,26 +123,42 @@ def resolve_engine(engine: str) -> str:
 
 
 def _decode_lanes_pcm(
-    codes: torch.Tensor, states: BlockStates, header: HeaderInfo, num_samples: int, engine: str
+    lanes: torch.Tensor,
+    states: BlockStates,
+    header: HeaderInfo,
+    num_samples: int,
+    engine: str,
+    geo: BlockGeometry | None = None,
 ) -> torch.Tensor:
-    """(B, C, T) codes + per-block states -> (C, num_samples) int16 PCM,
-    by the resolved ``engine`` ("fused" or "pallas")."""
-    B, C, T = codes.shape
+    """Block lanes + per-block (B, C, ...) states -> (C, num_samples) int16
+    PCM, by the resolved ``engine`` ("fused" or "pallas").
+
+    With ``geo``, ``lanes`` is the (B, block_size) block rows, their codes
+    packed in the data regions; without, the (B, C, T) codes one a byte.
+    """
+    B, C = states.step_index.shape
     # channel-major lanes: lane c * B + b is channel c of block b
     step_index = states.step_index.t().reshape(C * B).contiguous()
     history = states.history.transpose(0, 1).reshape(C * B, 4).contiguous()
     weight = states.weight.transpose(0, 1).reshape(C * B, 4).contiguous()
     bps = header.bits_per_sample
     if engine == "pallas":
-        # phase A runs along time, so it takes the codes time-major; it sees
-        # the parse clamp, as aad_tpu/ops/decode.py:133 applies it
-        codes_tm = codes.permute(2, 1, 0).reshape(T, C * B).contiguous()
+        # phase A runs along time, so it takes the codes unpacked and
+        # time-major; it sees the parse clamp, as aad_tpu/ops/decode.py:133
+        # applies it
+        codes = lanes if geo is None else block_codes(lanes, geo)
+        codes_tm = codes.permute(2, 1, 0).reshape(codes.shape[-1], C * B).contiguous()
+        del codes
         qdiffs = compute_qdiffs_prefix(codes_tm, cs.clip(step_index, 0, STEP_INDEX_MAX), bps, dim=0)
         del codes_tm
         rows = lms_lanes(qdiffs, history, weight)
+    elif geo is None:
+        # codes one a byte: the lanes' rows of them
+        codes = lanes.transpose(0, 1).reshape(C * B, lanes.shape[-1]).contiguous()
+        rows = decode_lanes(codes, step_index, history, weight, bps)
     else:
-        # the kernel reads the (B, C, T) codes as they are
-        rows = decode_lanes(codes.contiguous(), step_index, history, weight, bps)  # (C * B, nspb)
+        # the kernel reads the packed data regions of the rows as they are
+        rows = decode_lanes(lanes.contiguous(), step_index, history, weight, bps, geo)  # (C * B, nspb)
     if header.ch_process_method == CH_PROCESS_MS:
         mid = rows[:B].to(torch.int32)
         side = rows[B:].to(torch.int32)
@@ -200,7 +217,8 @@ class Decoder:
         return framed
 
     def decode_framed(self, framed: FramedStream) -> torch.Tensor:
-        """Decode a pre-framed stream; returns (C, num_samples) int32."""
+        """Decode a pre-framed stream, its codes one a byte; returns (C,
+        num_samples) int32."""
         pcm = _decode_lanes_pcm(
             framed.codes.to(self.device),
             framed.states.to(self.device),
@@ -209,6 +227,15 @@ class Decoder:
             self.engine,
         )
         return pcm.to(torch.int32)
+
+    def decode_payload(self, payload) -> torch.Tensor:
+        """Decode the post-header payload; returns (C, num_samples) int32 on
+        the decoder's device. Strict: a cut payload raises
+        InsufficientDataError. ``aad_tpu``'s frames the payload first
+        (:meth:`frame`, codes one a byte); the result is the same, so this
+        is :meth:`decode_payload_ondevice`, which reads the codes packed.
+        """
+        return self.decode_payload_ondevice(payload).to(torch.int32)
 
     def decode_payload_ondevice(self, payload, strict: bool = True) -> torch.Tensor:
         """Whole decode on the device, bitstream parsing included.
@@ -247,10 +274,10 @@ class Decoder:
         The blocks go in chunks of ``_TRANSFER_CHUNK_BLOCKS``
         (``codec.transfer``): a chunk's bytes are copied into a pinned
         staging buffer and go up on the upload stream; its blocks decode on
-        the compute stream (framing, unpack, kernel 1, or phase A and kernel
-        5, the mid/side combine) and widen to int32 there; its samples come
-        down into the pinned output as soon as they are done, while the next
-        chunk goes up. Blocks are self-contained (reference:
+        the compute stream (framing, kernel 1, or the unpack, phase A and
+        kernel 5, the mid/side combine) and widen to int32 there; its
+        samples come down into the pinned output as soon as they are done,
+        while the next chunk goes up. Blocks are self-contained (reference:
         src/aad_decoder.c:363-380), so chunk boundaries change nothing.
         """
         payload = stream_view(payload)
@@ -293,8 +320,7 @@ class Decoder:
         """Decode the first ``nblocks`` blocks to (C, num_samples) int16."""
         blocks = pad_to_blocks(payload, nblocks, self.geometry)
         states = parse_block_headers(blocks, self.geometry)
-        codes = block_codes(blocks, self.geometry)
-        return _decode_lanes_pcm(codes, states, self.header, num_samples, self.engine)
+        return _decode_lanes_pcm(blocks, states, self.header, num_samples, self.engine, self.geometry)
 
     def decode_time_range(self, payload, start_seconds: float, end_seconds: float) -> torch.Tensor:
         """Random-access decode of a time window (seek support).

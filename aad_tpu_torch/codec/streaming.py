@@ -123,13 +123,13 @@ class StreamingEncoder:
         blocks, valid = _pad_to_blocks(pcm_t, geo, 0, num_blocks_for(n, geo.num_samples_per_block))
         if cfg.ch_process_method == CH_PROCESS_MS:
             blocks = lr_to_ms(blocks).to(torch.int16)
-        headers, codes, self._carry = encode_stream(
+        headers, data, self._carry = encode_stream(
             blocks, valid, cfg.bits_per_sample, cfg.num_encode_trials,
-            carry=self._carry, blocks_before=self._blocks_done, need_carry=True,
+            carry=self._carry, blocks_before=self._blocks_done, need_carry=True, pack=geo,
         )
         self._blocks_done += blocks.shape[0]
         self._samples_done += n
-        return _block_bytes(headers, codes, geo).reshape(-1)[: payload_size(geo, n)].cpu().numpy().tobytes()
+        return _block_bytes(headers, data, geo).reshape(-1)[: payload_size(geo, n)].cpu().numpy().tobytes()
 
 
 class _ByteFIFO:

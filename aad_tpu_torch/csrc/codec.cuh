@@ -1,5 +1,5 @@
-// Codec constants, table access, the LMS recurrence and the staged row
-// output shared by the decode and encode kernels.
+// Codec constants, table access, the code units, the LMS recurrence and the
+// staged row output shared by the decode and encode kernels.
 #pragma once
 
 #include <atomic>
@@ -58,6 +58,41 @@ __device__ __forceinline__ int32_t stepsize_from_index(const int32_t* s_step, in
   return s_step[(idx + kTablesHalf) >> kTablesDigits];
 }
 
+// How a lane's codes lie in bytes. Packed, as on the wire (reference:
+// src/aad_encoder.c:661-722, src/aad_decoder.c:394-455): a unit of kBytes
+// bytes a channel holds kCodes codes of BPS bits, the first code in the
+// highest bits (4-bit: 1 byte, 2 codes; 2-bit: 1 byte, 4 codes; 3-bit: 3
+// bytes, 8 codes, a big-endian 24-bit word), and the channels of a block
+// take turns unit by unit. Unpacked: one code a byte, the codes-level API of
+// ops/decode.py and ops/encode.py.
+template <int BPS, bool kPacked>
+struct CodeUnit {
+  static constexpr int kBytes = kPacked && BPS == 3 ? 3 : 1;    // bytes a channel a unit
+  static constexpr int kCodes = kPacked ? 8 * kBytes / BPS : 1;  // codes a unit
+  static constexpr int kBits = kPacked ? BPS : 8;                // bits a code takes in the unit
+  static constexpr int kShift = kCodes == 8 ? 3 : kCodes == 4 ? 2 : kCodes == 2 ? 1 : 0;  // log2(kCodes)
+  static constexpr uint32_t kMask = (1u << BPS) - 1;
+
+  // Code k of the unit whose bytes start at p.
+  static __device__ __forceinline__ int32_t read(const uint8_t* p, int k) {
+    uint32_t word = p[0];
+    if constexpr (kBytes == 3) word = (word << 16) | (static_cast<uint32_t>(p[1]) << 8) | p[2];
+    return static_cast<int32_t>((word >> ((kCodes - 1 - k) * kBits)) & kMask);
+  }
+
+  // The unit of the low kCodes * kBits bits of `word`, the first code
+  // highest: its byte i to p[i * stride].
+  static __device__ __forceinline__ void write(uint8_t* p, int64_t stride, uint32_t word) {
+    if constexpr (kBytes == 3) {
+      p[0] = static_cast<uint8_t>(word >> 16);
+      p[stride] = static_cast<uint8_t>(word >> 8);
+      p[2 * stride] = static_cast<uint8_t>(word);
+    } else {
+      p[0] = static_cast<uint8_t>(word);
+    }
+  }
+};
+
 // The 4-tap sign-LMS predictor of one lane, history newest first
 // (reference decoder: src/aad_decoder.c:291-315). Every product and sum
 // wraps as in the C build.
@@ -95,7 +130,7 @@ __device__ __forceinline__ Lms load_lms(const int32_t* __restrict__ history,
 // ---------------------------------------------------------------------------
 // Staged row output of the decode kernels (aad_decode_lanes, aad_lms_lanes).
 //
-// Both write (L, T + 4) int16 rows, one thread a lane: the four head samples
+// Both write (L, T + 4) int16 rows, one thread a row: the four head samples
 // (history reversed), then one sample a step. A thread storing its own
 // samples straight to device memory sends every warp store to 32 rows
 // (T + 4) * 2 bytes apart, 32 partial sectors for 64 bytes. Instead each
@@ -117,49 +152,63 @@ static_assert(kLanesPerBlock % 32 == 0, "whole warps");
 
 using OutTile = uint32_t[kLanesPerBlock][kTileWords];
 
+// The output row of each thread of a CTA: thread i writes row
+// first + (i / group) * stride + i % group, if i % group < valid.
+struct RowMap {
+  int64_t first;
+  int64_t stride;
+  int group;
+  int valid;
+
+  __device__ __forceinline__ bool has(int i) const { return i % group < valid; }
+  __device__ __forceinline__ int64_t row(int i) const { return first + (i / group) * stride + i % group; }
+};
+
 __device__ __forceinline__ uint32_t pack_pair(int32_t lo, int32_t hi) {
   return static_cast<uint32_t>(static_cast<uint16_t>(lo)) |
          (static_cast<uint32_t>(static_cast<uint16_t>(hi)) << 16);
 }
 
-// Write positions [p0, p1) of the block's rows (lanes lane0...) from a tile.
-__device__ __forceinline__ void write_tile(const OutTile& tile, int16_t* __restrict__ out, int lane0,
-                                           int num_lanes, int row_len, int p0, int p1) {
+// Write positions [p0, p1) of the CTA's rows from a tile.
+__device__ __forceinline__ void write_tile(const OutTile& tile, int16_t* __restrict__ out, const RowMap& rows,
+                                           int row_len, int p0, int p1) {
   constexpr int kWarps = kLanesPerBlock / 32;
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 32;
-  const int rows = min(kLanesPerBlock, num_lanes - lane0);
   if (row_len % 2 == 0) {  // p0 is even too: rows of 4-byte words
     const int n = (p1 - p0) / 2;
     uint32_t* o = reinterpret_cast<uint32_t*>(out);
-    for (int i = warp; i < rows; i += kWarps) {
-      uint32_t* dst = o + (static_cast<int64_t>(lane0 + i) * row_len + p0) / 2;
+    for (int i = warp; i < kLanesPerBlock; i += kWarps) {
+      if (!rows.has(i)) continue;
+      uint32_t* dst = o + (rows.row(i) * row_len + p0) / 2;
       for (int w = t; w < n; w += 32) dst[w] = tile[i][w];
     }
   } else {
     const int n = p1 - p0;
-    for (int i = warp; i < rows; i += kWarps) {
+    for (int i = warp; i < kLanesPerBlock; i += kWarps) {
+      if (!rows.has(i)) continue;
       const uint16_t* src = reinterpret_cast<const uint16_t*>(tile[i]);
-      int16_t* dst = out + static_cast<int64_t>(lane0 + i) * row_len + p0;
+      int16_t* dst = out + rows.row(i) * row_len + p0;
       for (int k = t; k < n; k += 32) dst[k] = static_cast<int16_t>(src[k]);
     }
   }
 }
 
-// Run every lane of the block over its row of num_steps + 4 positions,
-// staging the output through `tiles`. All threads of the block must call
-// it, those past num_lanes too: they take part in the barriers and the
+// Run every thread of the CTA over its row of num_steps + 4 positions,
+// staging the output through `tiles`. All threads of the CTA must call it,
+// those without a row too: they take part in the barriers and the
 // cooperative copies and compute nothing. The lane type provides
 //   head(row)      the four head samples, as two words at row[0..1];
+//   begin(j)       set up tile j's steps (threads with a row);
 //   step(j, t, k)  the sample of step t, the k-th step of tile j;
-//   fetch(j)       start the block's copies of tile j's inputs (all threads);
+//   fetch(j)       start the CTA's copies of tile j's inputs (all threads);
 //   wait()         wait for this thread's copies.
 template <class Lane>
 __device__ __forceinline__ void run_rows(Lane& lane, OutTile* tiles, int16_t* __restrict__ out,
-                                         int lane0, int num_lanes, int num_steps) {
+                                         const RowMap& rows, int num_steps) {
   const int row_len = num_steps + kFilterOrder;
   const int num_tiles = (row_len + kTileSteps - 1) / kTileSteps;
-  const bool active = lane0 + static_cast<int>(threadIdx.x) < num_lanes;
+  const bool active = rows.has(threadIdx.x);
   lane.fetch(0);
   lane.wait();
   __syncthreads();
@@ -173,6 +222,7 @@ __device__ __forceinline__ void run_rows(Lane& lane, OutTile* tiles, int16_t* __
     if (active) {
       uint32_t* row = tiles[j & 1][threadIdx.x];
       if (j == 0) lane.head(row);
+      lane.begin(j);
       uint32_t* w = row + (ps - p0) / 2;
       const int t0 = ps - kFilterOrder;
       const int n = p1 - ps;
@@ -189,7 +239,7 @@ __device__ __forceinline__ void run_rows(Lane& lane, OutTile* tiles, int16_t* __
     // tile j is complete and tile j + 1's inputs have landed; every thread
     // has also finished writing out tile j - 1, so its buffer is free
     __syncthreads();
-    write_tile(tiles[j & 1], out, lane0, num_lanes, row_len, p0, p1);
+    write_tile(tiles[j & 1], out, rows, row_len, p0, p1);
   }
 }
 

@@ -7,32 +7,48 @@
 // predictor and the int16 clip, emitting the block's four header samples
 // first (reference decoder: src/aad_decoder.c:269-318, 386-391).
 //
+// Like the TPU kernel, it reads the codes packed, as they lie in each block's
+// data region on the wire (_decode_word_step takes each code out of its
+// word), so nothing unpacks them before the launch: its input is the (B,
+// block_size) block rows of framing.split_blocks, and it takes each lane's
+// codes from its block's data region, channels interleaved unit by unit
+// (codec.cuh::CodeUnit: 4-bit 1 byte and 2 codes a channel, 2-bit 1 and 4,
+// 3-bit 3 and 8). The same kernel reads codes one a byte, (L, T) rows with
+// no header: the codes-level API (ops/decode.py::decode_blocks).
+//
 // What bounds it on an H100: instruction issue. Its compiled step loop
-// (4-bit) issues 37 instructions a sample, 16.75 of them on the integer ALU
-// and 13.6 IMADs on the FMA pipe (chip_smoke.py counts them from the SASS),
-// so at one warp instruction a clock per scheduler the benchmark stream's
-// 58,066 lanes x 988 codes take at least 0.063 ms; the bytes (1 in, 2 out a
-// sample) take 0.052 ms. Measured there (H100 80GB HBM3, 700 W; PERF.md
-// section 6), the first design, one thread a lane storing each sample
-// straight into its own row from 256-thread CTAs, took 1.13 ms: bound by
-// those stores, each warp store hitting 32 rows 1,984 bytes apart, 32
-// partial 32-byte sectors for 64 bytes. 64-lane CTAs alone gave 1.04 ms;
-// staging the rows through shared memory 0.34 ms; staging the codes too,
-// 0.22 ms, 29% of the issue bound. The design:
+// (4-bit, packed) issues 39.1 instructions a sample, 17.5 of them on the
+// integer ALU and 15.25 IMADs on the FMA pipe (chip_smoke.py counts them
+// from the SASS), so at one warp instruction a clock per scheduler the
+// benchmark stream's 58,066 lanes x 988 codes take at least 0.067 ms; the
+// bytes (the 29.7 MB of block rows in, 2 bytes a sample out) take 0.043 ms.
+// Measured there (H100 80GB HBM3, 700 W; PERF.md section 6), the first
+// design, one thread a lane storing each sample straight into its own row
+// from 256-thread CTAs, took 1.13 ms: bound by those stores, each
+// warp store hitting 32 rows 1,984 bytes apart, 32 partial 32-byte sectors
+// for 64 bytes. 64-lane CTAs alone gave 1.04 ms; staging the rows through
+// shared memory 0.34 ms; staging the codes too, 0.22 ms; reading them
+// packed, 0.21 ms, 32% of the issue bound. The design:
 // - one thread a lane, the whole state in registers, both tables in shared
 //   memory (the int table is exact by construction, so the f32 step-size
 //   formula of the TPU kernel and its correction set are not carried over);
 // - the output staged through shared memory and written as whole row
 //   segments (codec.cuh::run_rows) by 64-lane CTAs, so the lanes spread
 //   evenly over 132 SMs (908 CTAs at the benchmark stream, all resident);
-// - the codes read in the (B, C, T) order that framing.block_codes gives:
-//   every 64 steps the CTA copies each lane's next 64 code bytes into shared
-//   memory with cp.async, coalesced along the rows and one tile ahead of the
-//   compute, and a thread walks its own row from there. A thread loading its
-//   code byte from device memory at every step cost 0.12 ms more, and the
-//   time-major (T, L) code layout that such loads need was a 57 MB
-//   transpose before every launch, a quarter of the resident decode's
-//   device time.
+// - a CTA takes every channel of 64 / C consecutive blocks (lane c * B + b
+//   is channel c of block b; thread c * 64 / C + i takes block b0 + i), so
+//   the bytes of a block's units, both channels interleaved, are read once,
+//   by one CTA;
+// - every 64 steps the CTA copies the bytes of the next tile's units of each
+//   of its blocks into shared memory with cp.async, 4-byte words from the
+//   boundary at or before them (a mono data region starts 18 bytes into its
+//   block, a 3-bit block may be 1,023 bytes long), one tile ahead of the
+//   compute; a thread takes its code out of its unit there (a 3-bit tile
+//   starts mid-unit: a tile is 64 steps, the first 60). A thread loading
+//   its code from device memory at every step cost 0.12 ms more, and the
+//   one-byte-a-code (B, C, T) tensor that an earlier design took cost an
+//   unpack of torch ops (0.42 ms, 59% of the resident decode's device time)
+//   before every launch.
 //
 // aad_stepsize_probe replaces the TPU correction probe
 // aad_tpu/ops/pallas_decode.py::stepsize_corrections (probe_kernel). It
@@ -53,42 +69,57 @@
 
 namespace aad {
 
-// A lane's codes of one tile, from the 4-byte boundary at or before them.
-constexpr int kCodeTileWords = kTileSteps / 4 + 1;  // odd: conflict-free reads
-using CodeTile = uint32_t[kLanesPerBlock][kCodeTileWords];
-
-template <int BPS>
+// One thread's lane: channel `channel` of block `slot` of the CTA.
+template <int BPS, bool kPacked, int C>
 struct DecodeLane {
-  static constexpr int32_t kCodeMask = (1 << BPS) - 1;
+  using Unit = CodeUnit<BPS, kPacked>;
   static constexpr int32_t kSignBit = 1 << (BPS - 1);
   static constexpr int32_t kAbsMask = kSignBit - 1;
+  static constexpr int kBlocks = kLanesPerBlock / C;  // blocks a CTA
+  static constexpr int kUnitBytes = C * Unit::kBytes;  // a unit of all channels
+  // Units a tile's steps touch, at most (a tile may start mid-unit), and
+  // the words a block's share of a tile takes in shared memory, from the
+  // 4-byte boundary at or before its first byte; odd, so that the threads
+  // of a warp, each reading the same unit of its own block, hit different
+  // banks.
+  static constexpr int kTileUnits = (kTileSteps + 2 * (Unit::kCodes - 1)) / Unit::kCodes;
+  static constexpr int kPitch = ((kTileUnits * kUnitBytes + 3) / 4 + 1) | 1;
+  using CodeTile = uint32_t[kBlocks * kPitch];
 
   Lms lms;
   int32_t idx;
   const int32_t* s_step;
   const int32_t* s_delta;
-  CodeTile* s_codes;     // two tiles
-  const int64_t* s_row;  // first byte of each lane's code row, -1 past the last lane
-  const uint8_t* codes;
+  CodeTile* s_codes;       // two tiles
+  const int64_t* s_row;    // each block's data region in `bytes`, -1 past the last block
+  const uint8_t* bytes;    // the rows, from the 4-byte boundary at or before them
   int64_t num_bytes;
+  int64_t row;             // this thread's block's data region in `bytes`
   int num_codes;
-  int skew;  // this lane's row start past its 4-byte boundary
+  int slot;                // this thread's block in the CTA
+  int channel_byte;        // its channel's first byte in a unit
+  const uint8_t* unit0;    // begin(j): this thread's bytes of tile j's first unit
+  int first;               // begin(j): tile j's first step in its unit
 
-  __device__ __forceinline__ void head(uint32_t* row) const { write_head(row, lms); }
+  __device__ __forceinline__ void head(uint32_t* row_out) const { write_head(row_out, lms); }
 
   // Tile j holds steps [t0, t1): 60 in tile 0 (after the head), 64 after.
-  // Since t0 is a multiple of 4, a row's words start at its skew.
+  static __device__ __forceinline__ int tile_step(int j) { return j == 0 ? 0 : j * kTileSteps - kFilterOrder; }
+
+  // The bytes of the units of steps [t0, t1) of every block of the CTA.
   __device__ __forceinline__ void fetch(int j) const {
-    const int t0 = j == 0 ? 0 : j * kTileSteps - kFilterOrder;
+    const int t0 = tile_step(j);
     const int t1 = min((j + 1) * kTileSteps - kFilterOrder, num_codes);
-    CodeTile& tile = s_codes[j & 1];
-    for (int i = threadIdx.x; i < kLanesPerBlock * kCodeTileWords; i += kLanesPerBlock) {
-      const int r = i / kCodeTileWords;
-      const int w = i - r * kCodeTileWords;
-      const int64_t row = s_row[r];
-      const int64_t src = ((row + t0) & ~int64_t{3}) + 4 * w;
-      if (row >= 0 && src < row + t1) {
-        cp_async4(&tile[r][w], codes + src, static_cast<int>(min(int64_t{4}, num_bytes - src)));
+    const int64_t lo = static_cast<int64_t>(t0 >> Unit::kShift) * kUnitBytes;
+    const int64_t hi = static_cast<int64_t>((t1 + Unit::kCodes - 1) >> Unit::kShift) * kUnitBytes;
+    uint32_t* tile = s_codes[j & 1];
+    for (int i = threadIdx.x; i < kBlocks * kPitch; i += kLanesPerBlock) {
+      const int r = i / kPitch;
+      const int w = i - r * kPitch;
+      const int64_t start = s_row[r];
+      const int64_t src = ((start + lo) & ~int64_t{3}) + 4 * w;
+      if (start >= 0 && src < start + hi) {
+        cp_async4(&tile[i], bytes + src, static_cast<int>(min(int64_t{4}, num_bytes - src)));
       }
     }
     cp_async_commit();
@@ -96,9 +127,16 @@ struct DecodeLane {
 
   __device__ __forceinline__ void wait() const { cp_async_wait_all(); }
 
-  __device__ __forceinline__ int32_t step(int j, int, int k) {
-    const uint8_t* c = reinterpret_cast<const uint8_t*>(s_codes[j & 1][threadIdx.x]) + skew;
-    const int32_t code = c[k] & kCodeMask;
+  __device__ __forceinline__ void begin(int j) {
+    const int t0 = tile_step(j);
+    const int64_t lo = static_cast<int64_t>(t0 >> Unit::kShift) * kUnitBytes;
+    unit0 = reinterpret_cast<const uint8_t*>(s_codes[j & 1] + slot * kPitch) + ((row + lo) & 3) + channel_byte;
+    first = Unit::kCodes > 4 ? t0 & (Unit::kCodes - 1) : 0;  // tiles start at multiples of 4 steps
+  }
+
+  __device__ __forceinline__ int32_t step(int, int, int k) {
+    const int q = first + k;
+    const int32_t code = Unit::read(unit0 + (q >> Unit::kShift) * kUnitBytes, q & (Unit::kCodes - 1));
     // quantised difference (reference: src/aad_decoder.c:284-288)
     const int32_t step = stepsize_from_index(s_step, idx);
     const int32_t qmag = (step * (((code & kAbsMask) << 1) + 1)) >> (BPS - 1);
@@ -109,41 +147,63 @@ struct DecodeLane {
   }
 };
 
-template <int BPS>
+template <int BPS, bool kPacked, int C>
 __global__ void __launch_bounds__(kLanesPerBlock)
-    decode_lanes_kernel(const uint8_t* __restrict__ codes,       // (B, C, T)
-                        const int32_t* __restrict__ step_index,  // (L,), lane c * B + b
-                        const int32_t* __restrict__ history,     // (L, 4), newest first
-                        const int32_t* __restrict__ weight,      // (L, 4)
-                        const int32_t* __restrict__ step_table,  // (256,)
-                        const int32_t* __restrict__ index_table, // (2**BPS,)
-                        int16_t* __restrict__ out,               // (L, T + 4)
-                        int num_blocks, int num_channels, int num_codes) {
+    decode_lanes_kernel(const uint8_t* __restrict__ bytes,      // (B, block_bytes) rows, `skew` bytes in
+                        const int32_t* __restrict__ step_index, // (L,), lane c * B + b
+                        const int32_t* __restrict__ history,    // (L, 4), newest first
+                        const int32_t* __restrict__ weight,     // (L, 4)
+                        const int32_t* __restrict__ step_table, // (256,)
+                        const int32_t* __restrict__ index_table,// (2**BPS,)
+                        int16_t* __restrict__ out,              // (L, T + 4)
+                        int skew, int num_blocks, int num_codes, int block_bytes, int data_offset) {
+  using Lane = DecodeLane<BPS, kPacked, C>;
   __shared__ int32_t s_step[kStepTableSize];
   __shared__ int32_t s_delta[1 << BPS];
-  __shared__ int64_t s_row[kLanesPerBlock];
-  __shared__ CodeTile s_codes[2];
+  __shared__ int64_t s_row[Lane::kBlocks];
+  __shared__ typename Lane::CodeTile s_codes[2];
   __shared__ OutTile s_out[2];
   stage_table(s_step, step_table, kStepTableSize);
   stage_table(s_delta, index_table, 1 << BPS);
 
-  const int num_lanes = num_blocks * num_channels;
-  const int lane0 = blockIdx.x * kLanesPerBlock;
-  const int lane = lane0 + static_cast<int>(threadIdx.x);
-  const bool active = lane < num_lanes;
-  // lane c * B + b is channel c of block b: code row b * C + c
-  const int64_t row =
-      active ? (static_cast<int64_t>(lane % num_blocks) * num_channels + lane / num_blocks) * num_codes : -1;
-  s_row[threadIdx.x] = row;
+  const int b0 = blockIdx.x * Lane::kBlocks;
+  const int slot = threadIdx.x % Lane::kBlocks;
+  const int channel = threadIdx.x / Lane::kBlocks;
+  const int b = b0 + slot;
+  const bool active = b < num_blocks;
+  const int64_t row = active ? skew + static_cast<int64_t>(b) * block_bytes + data_offset : -1;
+  if (channel == 0) s_row[slot] = row;
   __syncthreads();
 
   // Parse clamp: wire indices in (4080, 4095] pin to the table maximum, as
   // at every header parse; the adaptation keeps idx in [0, 4080].
-  DecodeLane<BPS> d{load_lms(history, weight, lane, active),
-                    active ? clip(step_index[lane], 0, kStepIndexMax) : 0,
-                    s_step, s_delta, s_codes, s_row, codes,
-                    static_cast<int64_t>(num_lanes) * num_codes, num_codes, static_cast<int>(row & 3)};
-  run_rows(d, s_out, out, lane0, num_lanes, num_codes);
+  const int lane = channel * num_blocks + b;
+  Lane d{load_lms(history, weight, lane, active),
+         active ? clip(step_index[lane], 0, kStepIndexMax) : 0,
+         s_step, s_delta, s_codes, s_row, bytes,
+         skew + static_cast<int64_t>(num_blocks) * block_bytes, row, num_codes, slot,
+         channel * Lane::Unit::kBytes, nullptr, 0};
+  // thread c * kBlocks + i writes row c * B + b0 + i
+  run_rows(d, s_out, out, RowMap{b0, num_blocks, Lane::kBlocks, min(Lane::kBlocks, num_blocks - b0)}, num_codes);
+}
+
+template <int BPS, bool kPacked, int C>
+cudaError_t launch_decode(const void* bytes, int skew, const void* step_index, const void* history,
+                          const void* weight, const void* step_table, const void* index_table, void* out,
+                          int num_blocks, int num_codes, int block_bytes, int data_offset, int device,
+                          cudaStream_t stream) {
+  const auto kernel = decode_lanes_kernel<BPS, kPacked, C>;
+  static std::atomic<uint64_t> carveout_set{0};  // one set for each instance
+  const cudaError_t err = prefer_shared_once(kernel, device, carveout_set);
+  if (err != cudaSuccess) return err;
+  constexpr int kBlocks = DecodeLane<BPS, kPacked, C>::kBlocks;
+  const dim3 grid((num_blocks + kBlocks - 1) / kBlocks);
+  kernel<<<grid, kLanesPerBlock, 0, stream>>>(
+      static_cast<const uint8_t*>(bytes), static_cast<const int32_t*>(step_index),
+      static_cast<const int32_t*>(history), static_cast<const int32_t*>(weight),
+      static_cast<const int32_t*>(step_table), static_cast<const int32_t*>(index_table),
+      static_cast<int16_t*>(out), skew, num_blocks, num_codes, block_bytes, data_offset);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kStepTableSize)
@@ -159,26 +219,26 @@ __global__ void __launch_bounds__(kStepTableSize)
 
 extern "C" {
 
-int aad_decode_lanes(const void* codes, const void* step_index, const void* history,
-                     const void* weight, const void* step_table, const void* index_table,
-                     void* out, int num_blocks, int num_channels, int num_codes,
-                     int bits_per_sample, int device, void* stream) {
+// bytes: the (B, block_bytes) rows from the 4-byte boundary at or before
+// them, `skew` bytes before the first row; each row's codes start at
+// data_offset, packed (channels 1 or 2) or one a byte (channels 1).
+int aad_decode_lanes(const void* bytes, int skew, const void* step_index, const void* history,
+                     const void* weight, const void* step_table, const void* index_table, void* out,
+                     int num_blocks, int num_channels, int num_codes, int block_bytes, int data_offset,
+                     int bits_per_sample, int packed, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int num_lanes = num_blocks * num_channels;
-  const dim3 grid((num_lanes + aad::kLanesPerBlock - 1) / aad::kLanesPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(aad::dispatch_bps(bits_per_sample, [&](auto bps) {
-    const auto kernel = aad::decode_lanes_kernel<decltype(bps)::value>;
-    static std::atomic<uint64_t> carveout_set{0};  // one set for each bps
-    const cudaError_t e = aad::prefer_shared_once(kernel, device, carveout_set);
-    if (e != cudaSuccess) return e;
-    kernel<<<grid, aad::kLanesPerBlock, 0, s>>>(
-        static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(step_index),
-        static_cast<const int32_t*>(history), static_cast<const int32_t*>(weight),
-        static_cast<const int32_t*>(step_table), static_cast<const int32_t*>(index_table),
-        static_cast<int16_t*>(out), num_blocks, num_channels, num_codes);
-    return cudaGetLastError();
+    constexpr int kBps = decltype(bps)::value;
+    const auto args = [&](auto launch) {
+      return launch(bytes, skew, step_index, history, weight, step_table, index_table, out, num_blocks,
+                    num_codes, block_bytes, data_offset, device, s);
+    };
+    if (packed && num_channels == 1) return args(aad::launch_decode<kBps, true, 1>);
+    if (packed && num_channels == 2) return args(aad::launch_decode<kBps, true, 2>);
+    if (!packed && num_channels == 1) return args(aad::launch_decode<kBps, false, 1>);
+    return cudaErrorInvalidValue;
   }));
 }
 

@@ -8,7 +8,12 @@
 // strict improvement of the wrapped-square error sum wins), the history seed,
 // the weight rounding, the 10 header fields and the codes of the whole
 // padded block (reference encoder: src/aad_encoder.c:343-467, 470-562,
-// 588-655). With warm_on_prev == 0 (the block-parallel mode, every block a
+// 588-655). Like the TPU kernel, which packs 8 codes into a word in its body
+// (pallas_encode_fused.py:760-770), it writes the codes packed as the wire
+// holds them (codec.cuh::CodeUnit): each block's data region, the channels of
+// a row (the last lane axis) interleaved unit by unit, so nothing packs them
+// after the launch; or one code a byte, time-major, for the codes-level API
+// (ops/encode.py's functions and the sharded encodes). With warm_on_prev == 0 (the block-parallel mode, every block a
 // stream head) trial 1's measure is the baseline's, so its end state is
 // reused and trials=N costs N measure passes plus the emit. Optionally it
 // writes every block's final state (the warm passes' source).
@@ -22,7 +27,7 @@
 // What bounds them on an H100. A lane is one dependent chain: each sample's
 // step needs the state the step before left (history, weights, step index),
 // and lanes are independent. A lane reads 2 bytes and writes at most 1 per
-// sample and pass, so bytes never bound. At the block-parallel shape (58,066
+// sample and pass (half a byte packed, at 4 bits), so bytes never bound. At the block-parallel shape (58,066
 // lanes, 14 warps an SM) the lanes fill the schedulers and integer issue
 // bounds. At the sequential shape (a lane a channel: 2 lanes, one warp on
 // one SM) nothing runs beside a lane's chain, and its latency bounds: the
@@ -43,9 +48,16 @@
 //   too long for a paired CTA: one thread per lane with the
 //   whole state in registers, the block sequence and the trial search's
 //   passes a loop inside the thread, samples read int16 and time-major (a
-//   warp's 32 lanes read 64 consecutive bytes per step), codes written
-//   time-major, the step-size table staged per CTA in shared memory, 64
-//   threads per CTA.
+//   warp's 32 lanes read 64 consecutive bytes per step), the step-size table
+//   staged per CTA in shared memory, 64 threads per CTA. Codes one a byte
+//   are written time-major (a warp's 32 lanes store 32 consecutive bytes a
+//   step). Packed, a lane's codes go to its own row (at the parallel shape,
+//   rows of 32 lanes lie 988 bytes apart, or a block apart), and a store of
+//   each unit straight to its row would send every warp store to 16-32
+//   rows; so the emit stages them: each lane packs its codes into its row
+//   of the warp's tile in shared memory, and after every kTileCodes steps
+//   the warp writes the tile's rows out, 32 consecutive bytes a store
+//   (StagedRows).
 //
 // * The paired schedule, for launches whose trial search warms on the
 //   previous block (the sequential path, StreamingEncoder, the chunked
@@ -67,11 +79,20 @@
 //   has no data-dependent branch, so the two never diverge. An emit writes
 //   its codes, its header fields and its end state only if its candidate
 //   was adopted, in order, so the last strict improvement wins;
-//   emit[cand_N] runs before better_N is known, into shared memory (T bytes
-//   a lane), and is copied out once it is. The partners exchange candidate
+//   emit[cand_N] runs before better_N is known, into shared memory, and is
+//   copied out once it is. Codes one a byte go time-major, the adopted
+//   emits' straight to device memory (a warp's lanes store consecutive
+//   bytes), the speculative one's through shared memory. Packed, both the
+//   adopted emits' and the speculative one's copy of a CTA's rows of the
+//   block's data regions lie in shared memory (a unit stored straight to
+//   each lane's row sent every warp store to 8-16 rows and took the chunked
+//   parallel mode's 14,518 lanes from 2.9 to 4.2 ms a launch), the second
+//   copied over the first if adopted, and after the block the CTA writes
+//   its rows out, consecutive bytes. The partners exchange candidate
 //   states, error sums and the next block's state by warp shuffles. CTAs of
-//   kPairLanes lanes (one warp) or fewer, so that the speculative codes fit
-//   48 KB; a block longer than that takes the serial schedule. The pair
+//   kPairLanes lanes (one warp) or fewer, whole rows of C lanes, so that the
+//   codes in shared memory fit 48 KB; a block longer than that takes the
+//   serial schedule. The pair
 //   wins at every lane count measured, 2 to 58,066 (PERF.md), so no lane
 //   count gates it.
 //
@@ -92,8 +113,8 @@
 // 255) at its first step; from then on the index is in [0, 4080] and its
 // slot needs no clamp.
 //
-// Not carried over from the TPU kernels: the u32 sample-pair and code words,
-// the (8, 128) lane tiles and the R-fold lane interleave, pass_stack's
+// Not carried over from the TPU kernels: the u32 sample-pair and code words
+// (the codes are packed in bytes, as on the wire), the (8, 128) lane tiles and the R-fold lane interleave, pass_stack's
 // sublane stacking (its schedule is the paired one above), the VMEM
 // chunked-DMA variant, the f32 step-size formula with its correction set,
 // and the two-limb error sum (int64 here).
@@ -103,6 +124,7 @@
 // the launch.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -117,6 +139,7 @@ constexpr int kStateFields = 9;    // history[4], weight[4], step index
 constexpr int kPairLanes = 16;       // lanes (2 threads each) a CTA of the paired schedule: one warp
 constexpr int kPairedBytes = 46 * 1024;  // dynamic shared memory a paired CTA: with the step sizes, under 48 KB
 constexpr int kStageMaxLanes = 4096;     // the widest launch whose paired CTAs stage their samples (lane sweep)
+constexpr int kTileCodes = 64;           // codes of a lane the serial schedule stages before a warp writes them out
 
 struct State {
   int32_t h0, h1, h2, h3;  // history, newest first
@@ -264,15 +287,55 @@ __device__ __forceinline__ int32_t first_step(const int32_t* s_step, int32_t idx
   return s_step[clip(asr(wadd(idx, kTablesHalf), kTablesDigits), 0, kStepTableSize - 1)];
 }
 
+// Where a pass's codes go: put(t, code) takes the code of slot t.
+
+// A measure keeps none.
+struct NoCodes {
+  static constexpr bool kKeeps = false;
+  __device__ __forceinline__ void put(int, int32_t) {}
+};
+
+// One code a byte at codes[t * stride] (aad_encode_pass).
+struct ByteCodes {
+  static constexpr bool kKeeps = true;
+  uint8_t* codes;
+  int64_t stride;
+  __device__ __forceinline__ void put(int t, int32_t code) { codes[t * stride] = static_cast<uint8_t>(code); }
+};
+
+// Codes in units (codec.cuh::CodeUnit) from slot 0 on: unit u's byte i at
+// p[u * unit_stride + i * byte_stride]. A unit is written when its last
+// code is put; a pass over a block's whole data region puts every code of
+// every unit. Packed units advance a pointer, codes one a byte take their
+// address from the slot: each the faster of the two for it in the paired
+// schedule at 14,518 lanes (H100, in turns: packed 3.42-3.45 ms a launch
+// against 3.89; one a byte 2.80-2.82 against 3.19-3.20).
+template <class Unit>
+struct UnitCodes {
+  static constexpr bool kKeeps = true;
+  uint8_t* p;  // packed: the next unit's first byte; one a byte: slot 0's
+  int64_t unit_stride;
+  int64_t byte_stride;
+  uint32_t word;  // the codes put so far, the latest lowest
+
+  __device__ __forceinline__ void put(int t, int32_t code) {
+    word = (word << Unit::kBits) | static_cast<uint32_t>(code);
+    if constexpr (Unit::kCodes == 1) {
+      Unit::write(p + t * unit_stride, byte_stride, word);
+    } else if ((t & (Unit::kCodes - 1)) == Unit::kCodes - 1) {
+      Unit::write(p, byte_stride, word);
+      p += unit_stride;
+    }
+  }
+};
+
 // One pass over a block's code slots, samples x[t * xs]: the first n_live
 // slots advance the state and the int64 sum `sse` of their wrapped squared
-// errors (reference: src/aad_encoder.c:431-467). With kCodes, every slot up
-// to n_codes writes its code to codes[t * cs], past n_live from the frozen
-// state.
-template <int BPS, bool kCodes>
+// errors (reference: src/aad_encoder.c:431-467). Every slot up to n_codes
+// puts its code to `codes`, past n_live from the frozen state.
+template <int BPS, class Sink>
 __device__ __forceinline__ State run(State s, const int16_t* __restrict__ x, int64_t xs, int n_live,
-                                     int n_codes, uint8_t* codes, int64_t cs, long long& sse,
-                                     const Tables<BPS>& tb) {
+                                     int n_codes, Sink& codes, long long& sse, const Tables<BPS>& tb) {
   int32_t step = first_step(tb.step, s.idx);
   long long acc = 0;
   int t = 0;
@@ -281,14 +344,14 @@ __device__ __forceinline__ State run(State s, const int16_t* __restrict__ x, int
     int32_t qdiff;
     const int32_t code = encode_step<BPS>(s, step, x[t * xs], tb, qdiff);
     acc += wrapped_square(qdiff);
-    if constexpr (kCodes) codes[t * cs] = static_cast<uint8_t>(code);
+    codes.put(t, code);
   }
-  if constexpr (kCodes) {
+  if constexpr (Sink::kKeeps) {
     for (; t < n_codes; ++t) {  // past the valid samples: each code from the frozen state
       State frozen = s;
       int32_t frozen_step = step;
       int32_t qdiff;
-      codes[t * cs] = static_cast<uint8_t>(encode_step<BPS>(frozen, frozen_step, x[t * xs], tb, qdiff));
+      codes.put(t, encode_step<BPS>(frozen, frozen_step, x[t * xs], tb, qdiff));
     }
   }
   sse = acc;
@@ -299,7 +362,59 @@ __device__ __forceinline__ State run(State s, const int16_t* __restrict__ x, int
 template <int BPS>
 __device__ __forceinline__ State measure(State s, const int16_t* __restrict__ x, int64_t stride,
                                          int n_live, long long& sse, const Tables<BPS>& tb) {
-  return run<BPS, false>(s, x, stride, n_live, n_live, nullptr, 0, sse, tb);
+  NoCodes none;
+  return run<BPS>(s, x, stride, n_live, n_live, none, sse, tb);
+}
+
+// The serial schedule's emit, staged per warp (see the top). Row r of a
+// block, lanes r * C .. r * C + C - 1 (its channels), is the block's data
+// region, units of C * kBytes bytes. A lane puts its codes into its bytes of
+// its row of the warp's tile, kTileCodes codes at a time; then the warp
+// writes the tile's rows out, its active lanes (a prefix of the warp) taking
+// consecutive bytes. The tile holds 32 / C rows of `pitch` bytes.
+template <class Unit>
+struct StagedRows {
+  uint8_t* tile;      // the warp's tile in shared memory
+  uint8_t* out;       // the block's row of the warp's first lane
+  int64_t row_bytes;  // a row in `out`
+  int pitch;          // a row in the tile: an odd number of words
+  int unit_bytes;     // C * kBytes
+  int rows;           // the warp's rows that exist
+  int mine;           // this lane's first byte in the tile: its row, its channel
+  unsigned mask;      // the warp's active lanes
+
+  // Every code of a block, from entry state s; returns the state after it.
+  template <int BPS>
+  __device__ __forceinline__ State emit(State s, const int16_t* __restrict__ x, int64_t xs, int num_codes,
+                                        const Tables<BPS>& tb) {
+    const int rank = threadIdx.x & 31;
+    const int active = __popc(mask);
+    for (int t0 = 0; t0 < num_codes; t0 += kTileCodes) {
+      const int n = min(kTileCodes, num_codes - t0);
+      UnitCodes<Unit> codes{tile + mine, unit_bytes, 1, 0};
+      long long unused;
+      s = run<BPS>(s, x + t0 * xs, xs, n, n, codes, unused, tb);
+      __syncwarp(mask);
+      const int seg = (n >> Unit::kShift) * unit_bytes;  // bytes of a row in this tile
+      uint8_t* dst = out + static_cast<int64_t>(t0 >> Unit::kShift) * unit_bytes;
+      for (int r = 0; r < rows; ++r) {
+        for (int k = rank; k < seg; k += active) dst[r * row_bytes + k] = tile[r * pitch + k];
+      }
+      __syncwarp(mask);  // the tile is free again
+    }
+    return s;
+  }
+};
+
+// The tile bytes a warp of the serial schedule takes: 32 rows of an odd
+// number of words, enough for kTileCodes codes of a lane one a byte.
+constexpr int kStageRowWords = (kTileCodes / 4) | 1;
+constexpr int kStageWarpBytes = 32 * 4 * kStageRowWords;
+
+// The tile pitch in bytes for units of unit_bytes (C * kBytes).
+template <class Unit>
+__device__ __forceinline__ int stage_pitch(int unit_bytes) {
+  return 4 * (((kTileCodes / Unit::kCodes) * unit_bytes / 4) | 1);
 }
 
 __device__ __forceinline__ int32_t abs_wrapped(int32_t w) { return w >= 0 ? w : wneg(w); }
@@ -336,7 +451,7 @@ __device__ __forceinline__ void store_header(int32_t* hdr, int64_t stride, const
 }
 
 // The serial schedule (see the top).
-template <int BPS>
+template <int BPS, bool kPacked>
 __global__ void __launch_bounds__(kEncodeThreads)
     encode_stream_kernel(const int16_t* __restrict__ samples,    // (B, nspb, L) time-major
                          const int16_t* __restrict__ prev0,      // (nspb, L), or null if unread
@@ -346,18 +461,30 @@ __global__ void __launch_bounds__(kEncodeThreads)
                          const int32_t* __restrict__ weight,     // (L, 4)
                          const int32_t* __restrict__ step_table, // (256,)
                          const int32_t* __restrict__ index_table,// (2**BPS,)
-                         uint8_t* __restrict__ codes,            // (B, nspb - 4, L)
+                         uint8_t* __restrict__ codes,            // (B, L / C, row_bytes); unpacked (B, T, L)
                          int32_t* __restrict__ headers,          // (B, 10, L)
                          int32_t* __restrict__ states,           // (B, 9, L), or null
-                         int num_blocks, int num_lanes, int nspb, int num_trials,
+                         int num_blocks, int num_lanes, int nspb, int num_channels, int num_trials,
                          int warm_on_prev, int blocks_before) {
+  using Unit = CodeUnit<BPS, kPacked>;
   __shared__ int32_t s_step[kStepTableSize];
+  __shared__ uint8_t s_stage[kEncodeThreads / 32][kStageWarpBytes];
   const Tables<BPS> tb = stage_tables<BPS>(s_step, step_table, index_table);
 
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const unsigned mask = __ballot_sync(0xffffffffu, lane < num_lanes);
   if (lane >= num_lanes) return;
   const int64_t L = num_lanes;
   const int T = nspb - kFilterOrder;
+  const int C = num_channels;
+  const int unit_bytes = C * Unit::kBytes;
+  const int64_t row_bytes = static_cast<int64_t>(T >> Unit::kShift) * unit_bytes;
+  const int64_t warp_lane0 = lane & ~int64_t{31};
+  const int in_warp = static_cast<int>(lane - warp_lane0);
+  const int pitch = stage_pitch<Unit>(unit_bytes);
+  StagedRows<Unit> staged{s_stage[threadIdx.x / 32], nullptr, row_bytes, pitch, unit_bytes,
+                          static_cast<int>(min(int64_t{32}, L - warp_lane0) / C),
+                          (in_warp / C) * pitch + (in_warp % C) * Unit::kBytes, mask};
   State st = load_state(step_index, history, weight, lane);
 
   for (int b = 0; b < num_blocks; ++b) {
@@ -421,9 +548,14 @@ __global__ void __launch_bounds__(kEncodeThreads)
     store_header(headers + static_cast<int64_t>(b) * kHeaderFields * L + lane, L, st, shift);
 
     // data section: every slot of the padded block (src/aad_encoder.c:661-722)
-    long long unused;
-    st = run<BPS, true>(st, cur + kFilterOrder * L, L, T, T,
-                                        codes + static_cast<int64_t>(b) * T * L + lane, L, unused, tb);
+    if constexpr (kPacked) {
+      staged.out = codes + (static_cast<int64_t>(b) * (L / C) + warp_lane0 / C) * row_bytes;
+      st = staged.emit(st, cur + kFilterOrder * L, L, T, tb);
+    } else {
+      ByteCodes to{codes + static_cast<int64_t>(b) * T * L + lane, L};
+      long long unused;
+      st = run<BPS>(st, cur + kFilterOrder * L, L, T, T, to, unused, tb);
+    }
     if (states != nullptr) {
       store_fields(states + static_cast<int64_t>(b) * kStateFields * L + lane, L, st);
     }
@@ -447,9 +579,11 @@ __device__ __forceinline__ void stage_column(int16_t* tile, const int16_t* __res
 // lane l of the CTA is threads 2l (the chain) and 2l + 1 (the side). The
 // dynamic shared memory holds, with kStaged, two tiles (nspb, lanes a CTA)
 // int16 of the samples, the current block's and the previous one's, which
-// the passes read in place of device memory; then the speculative codes,
-// (T, lanes a CTA).
-template <int BPS, bool kStaged>
+// the passes read in place of device memory; then, packed, two copies of
+// the CTA's rows of the block's data regions, (lanes a CTA / C, row_bytes)
+// each: the adopted emits' and the speculative one's; unpacked, the
+// speculative codes, (T, lanes a CTA).
+template <int BPS, bool kStaged, bool kPacked>
 __global__ void __launch_bounds__(2 * kPairLanes)
     encode_stream_paired_kernel(const int16_t* __restrict__ samples,    // (B, nspb, L) time-major
                                 const int16_t* __restrict__ prev0,      // (nspb, L)
@@ -459,11 +593,12 @@ __global__ void __launch_bounds__(2 * kPairLanes)
                                 const int32_t* __restrict__ weight,     // (L, 4)
                                 const int32_t* __restrict__ step_table, // (256,)
                                 const int32_t* __restrict__ index_table,// (2**BPS,)
-                                uint8_t* __restrict__ codes,            // (B, nspb - 4, L)
+                                uint8_t* __restrict__ codes,            // (B, L / C, row_bytes); unpacked (B, T, L)
                                 int32_t* __restrict__ headers,          // (B, 10, L)
                                 int32_t* __restrict__ states,           // (B, 9, L), or null
-                                int num_blocks, int num_lanes, int nspb, int num_trials,
+                                int num_blocks, int num_lanes, int nspb, int num_channels, int num_trials,
                                 int blocks_before) {
+  using Unit = CodeUnit<BPS, kPacked>;
   extern __shared__ uint8_t s_dyn[];
   __shared__ int32_t s_step[kStepTableSize];
   __shared__ uint8_t s_sink[2 * kPairLanes];  // the codes of a pass that keeps none
@@ -482,13 +617,23 @@ __global__ void __launch_bounds__(2 * kPairLanes)
 
   const int64_t L = num_lanes;
   const int T = nspb - kFilterOrder;
+  const int unit_bytes = num_channels * Unit::kBytes;
+  const int units = T >> Unit::kShift;
+  const int64_t row_bytes = static_cast<int64_t>(units) * unit_bytes;
+  const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * per_cta;  // a multiple of C
+  const int64_t cta_bytes = min(int64_t{per_cta}, L - lane0) / num_channels * row_bytes;  // its rows
   const int N = num_trials;
   const int slots = N == 1 ? 3 : 2 * N;
   const int last_measure = 2 * N - 1;
   const int64_t tile = static_cast<int64_t>(nspb) * per_cta;
   int16_t* const s_tiles = reinterpret_cast<int16_t*>(s_dyn) + local;
   uint8_t* const sink = s_sink + threadIdx.x;
-  uint8_t* const spec = s_dyn + (kStaged ? 4 * tile : 0) + local;
+  uint8_t* const s_codes = s_dyn + (kStaged ? 4 * tile : 0);
+  // packed: this lane's bytes of its row (local / C, channel local % C) in
+  // each copy; unpacked: its column of the speculative codes
+  uint8_t* const kept_codes = s_codes + (local / num_channels) * row_bytes + (local % num_channels) * Unit::kBytes;
+  uint8_t* const spec_codes = kPacked ? kept_codes + per_cta / num_channels * row_bytes : s_codes + local;
+  const int64_t spec_stride = kPacked ? unit_bytes : per_cta;
   const int64_t xs = kStaged ? per_cta : L;  // the samples' stride
   State st = load_state(step_index, history, weight, lane);
 
@@ -510,7 +655,8 @@ __global__ void __launch_bounds__(2 * kPairLanes)
     // candidate is adopted (src/aad_encoder.c:443-455)
     const int n_measure = v >= kFilterOrder ? clip(v - kFilterOrder, 0, T) : -1;
     const bool has_prev = b + blocks_before >= 1;  // warm-ups from the stream's second block on
-    uint8_t* const out = codes + static_cast<int64_t>(b) * T * L + lane;
+    uint8_t* const out = kPacked ? kept_codes : codes + static_cast<int64_t>(b) * T * L + lane;
+    const int64_t out_stride = kPacked ? unit_bytes : L;
     int32_t* const hdr = headers + static_cast<int64_t>(b) * kHeaderFields * L + lane;
 
     State walker = st;   // chain: the trial state
@@ -527,8 +673,7 @@ __global__ void __launch_bounds__(2 * kPairLanes)
       State entry;
       const int16_t* x = cur;
       int n = 0;
-      uint8_t* sink_to = sink;
-      int64_t cs = 0;
+      UnitCodes<Unit> to{sink, 0, 0, 0};
       if (!side) {
         if (chain_warms) {  // warm_(s/2 + 1) on the full previous block
           entry = has_prev ? seed(walker, prev, xs) : walker;
@@ -546,19 +691,17 @@ __global__ void __launch_bounds__(2 * kPairLanes)
         entry = header_state(s == 1 ? st : cand, cur, xs, shift);
         if (s == 1 || (chain_warms && better)) {  // adopted: codes and header in place
           n = T;
-          sink_to = out;
-          cs = L;
+          to = UnitCodes<Unit>{out, out_stride, 1, 0};
           store_header(hdr, L, entry, shift);
         } else if (s == last_measure) {  // candidate N, before better_N is known
           n = T;
-          sink_to = spec;
-          cs = per_cta;
+          to = UnitCodes<Unit>{spec_codes, spec_stride, 1, 0};
           spec_entry = entry;
           spec_shift = shift;
         }
       }
       long long sse;
-      const State end = run<BPS, true>(entry, x + kFilterOrder * xs, xs, n, n, sink_to, cs, sse, tb);
+      const State end = run<BPS>(entry, x + kFilterOrder * xs, xs, n, n, to, sse, tb);
       if (s == 0) {
         if (!side && has_prev) walker = end;
         min_sse = __shfl_sync(mask, sse, side_src);
@@ -575,9 +718,21 @@ __global__ void __launch_bounds__(2 * kPairLanes)
       }
     }
     if (side && N > 1 && better) {  // candidate N adopted: its codes, header and end state
-      for (int t = 0; t < T; ++t) out[t * L] = spec[t * per_cta];
+      for (int u = 0; u < units; ++u) {
+#pragma unroll
+        for (int i = 0; i < Unit::kBytes; ++i) out[u * out_stride + i] = spec_codes[u * spec_stride + i];
+      }
       store_header(hdr, L, spec_entry, spec_shift);
       kept = spec_end;
+    }
+    if constexpr (kPacked) {
+      // the CTA's rows of block b, consecutive bytes, by its active threads
+      // (a prefix of the warp)
+      __syncwarp(mask);
+      uint8_t* const dst = codes + (static_cast<int64_t>(b) * (L / num_channels) + lane0 / num_channels) * row_bytes;
+      const int active = __popc(mask);
+      for (int64_t k = threadIdx.x; k < cta_bytes; k += active) dst[k] = s_codes[k];
+      __syncwarp(mask);  // the copies are free again
     }
     st = shfl_state(mask, kept, side_src);
     if (side && states != nullptr) {
@@ -611,7 +766,8 @@ __global__ void __launch_bounds__(kEncodeThreads)
   const int n_live = clip(valid[lane] - kFilterOrder, 0, num_codes);
   long long sse;
   if (codes != nullptr) {
-    st = run<BPS, true>(st, samples + lane, L, n_live, num_codes, codes + lane, L, sse, tb);
+    ByteCodes to{codes + lane, L};
+    st = run<BPS>(st, samples + lane, L, n_live, num_codes, to, sse, tb);
   } else {
     st = measure<BPS>(st, samples + lane, L, n_live, sse, tb);
   }
@@ -627,36 +783,51 @@ __global__ void __launch_bounds__(kEncodeThreads)
   sse_out[lane] = sse;
 }
 
-// Lanes a CTA of the paired schedule holds, up to kPairLanes: its
-// speculative codes (T bytes a lane) and, staged, its two sample tiles
-// (4 nspb bytes a lane) must fit kPairedBytes. 0 if one lane does not fit.
-inline int paired_lanes_per_cta(int nspb, bool staged) {
-  const int64_t per_lane = nspb - kFilterOrder + (staged ? 4 * int64_t{nspb} : 0);
+// The dynamic shared memory a lane of the paired schedule takes: packed,
+// two copies of its share of a block's data regions; unpacked, its
+// speculative codes (T bytes); and, staged, its two sample tiles (4 nspb
+// bytes).
+inline int64_t paired_lane_bytes(int nspb, int bits_per_sample, bool packed, bool staged) {
+  const int64_t codes = nspb - kFilterOrder;
+  return (packed ? 2 * (codes * bits_per_sample / 8) : codes) + (staged ? 4 * int64_t{nspb} : 0);
+}
+
+// Lanes a CTA of the paired schedule holds, up to kPairLanes and whole rows
+// of C lanes, whose bytes fit kPairedBytes. 0 if a row does not fit.
+inline int paired_lanes_per_cta(int64_t lane_bytes, int num_channels) {
   int per_cta = kPairLanes;
-  while (per_cta > 0 && per_cta * per_lane > kPairedBytes) per_cta /= 2;
-  return per_cta;
+  while (per_cta > 0 && per_cta * lane_bytes > kPairedBytes) per_cta /= 2;
+  return per_cta >= num_channels ? per_cta : 0;
 }
 
 }  // namespace aad
 
 extern "C" {
 
+// codes: (B, L / C, row_bytes), the data region of each block's row of C
+// lanes, packed (C 1 or 2); or (B, T, L), one code a byte, time-major (C 1).
 int aad_encode_stream(const void* samples, const void* prev0, const void* valid,
                       const void* step_index, const void* history, const void* weight,
                       const void* step_table, const void* index_table, void* codes, void* headers,
-                      void* states, int num_blocks, int num_lanes, int nspb, int bits_per_sample,
-                      int num_trials, int warm_on_prev, int blocks_before, int device,
-                      void* stream) {
+                      void* states, int num_blocks, int num_lanes, int nspb, int num_channels,
+                      int bits_per_sample, int packed, int num_trials, int warm_on_prev,
+                      int blocks_before, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the schedule: paired where the trial search warms on the previous block
   // (and a lane fits a CTA), staged where the launch is narrow
+  if (num_channels < 1 || num_channels > 2 || num_lanes % num_channels != 0 || (!packed && num_channels != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto lane_bytes = [&](bool stage) { return aad::paired_lane_bytes(nspb, bits_per_sample, packed, stage); };
   const bool paired = num_trials > 0 && warm_on_prev;
-  const bool staged = paired && num_lanes <= aad::kStageMaxLanes && aad::paired_lanes_per_cta(nspb, true) > 0;
-  const int per_cta = paired ? aad::paired_lanes_per_cta(nspb, staged) : 0;
-  return static_cast<int>(aad::dispatch_bps(bits_per_sample, [&](auto bps) {
+  const bool staged =
+      paired && num_lanes <= aad::kStageMaxLanes && aad::paired_lanes_per_cta(lane_bytes(true), num_channels) > 0;
+  const int per_cta = paired ? aad::paired_lanes_per_cta(lane_bytes(staged), num_channels) : 0;
+  const auto launch = [&](auto bps, auto pack) {
     constexpr int kBps = decltype(bps)::value;
+    constexpr bool kPacked = decltype(pack)::value;
     const auto* x = static_cast<const int16_t*>(samples);
     const auto* p0 = static_cast<const int16_t*>(prev0);
     const auto* va = static_cast<const int32_t*>(valid);
@@ -670,21 +841,26 @@ int aad_encode_stream(const void* samples, const void* prev0, const void* valid,
     auto* bs = static_cast<int32_t*>(states);
     if (per_cta > 0) {
       const dim3 grid((num_lanes + per_cta - 1) / per_cta), block(2 * per_cta);
-      const size_t smem = static_cast<size_t>(per_cta) * (nspb - aad::kFilterOrder + (staged ? 4 * nspb : 0));
+      const size_t smem = static_cast<size_t>(per_cta * lane_bytes(staged));
       if (staged) {
-        aad::encode_stream_paired_kernel<kBps, true><<<grid, block, smem, s>>>(
-            x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_trials, blocks_before);
+        aad::encode_stream_paired_kernel<kBps, true, kPacked><<<grid, block, smem, s>>>(
+            x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
+            blocks_before);
       } else {
-        aad::encode_stream_paired_kernel<kBps, false><<<grid, block, smem, s>>>(
-            x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_trials, blocks_before);
+        aad::encode_stream_paired_kernel<kBps, false, kPacked><<<grid, block, smem, s>>>(
+            x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
+            blocks_before);
       }
     } else {
       const dim3 grid((num_lanes + aad::kEncodeThreads - 1) / aad::kEncodeThreads);
-      aad::encode_stream_kernel<kBps><<<grid, dim3(aad::kEncodeThreads), 0, s>>>(
-          x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_trials,
+      aad::encode_stream_kernel<kBps, kPacked><<<grid, dim3(aad::kEncodeThreads), 0, s>>>(
+          x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
           warm_on_prev, blocks_before);
     }
     return cudaGetLastError();
+  };
+  return static_cast<int>(aad::dispatch_bps(bits_per_sample, [&](auto bps) {
+    return packed ? launch(bps, std::true_type{}) : launch(bps, std::false_type{});
   }));
 }
 

@@ -62,6 +62,7 @@ struct LmsLane {
   int num_lanes;
 
   __device__ __forceinline__ void head(uint32_t* row) const { write_head(row, lms); }
+  __device__ __forceinline__ void begin(int) const {}
   __device__ __forceinline__ void fetch(int) const {}
   __device__ __forceinline__ void wait() const {}
   __device__ __forceinline__ int32_t step(int, int t, int) {
@@ -80,7 +81,7 @@ __global__ void __launch_bounds__(kLanesPerBlock)
   const int lane = lane0 + static_cast<int>(threadIdx.x);
   const bool active = lane < num_lanes;
   LmsLane l{load_lms(history, weight, lane, active), qdiffs + lane, num_lanes};
-  run_rows(l, s_out, out, lane0, num_lanes, num_steps);
+  run_rows(l, s_out, out, RowMap{lane0, 0, kLanesPerBlock, min(kLanesPerBlock, num_lanes - lane0)}, num_steps);
 }
 
 }  // namespace aad

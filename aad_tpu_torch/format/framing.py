@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..codec.result import InsufficientDataError
-from ..constants import FILTER_ORDER, STEP_INDEX_MAX, TABLES_FLOAT_DIGITS
+from ..constants import FILE_HEADER_SIZE, FILTER_ORDER, STEP_INDEX_MAX, TABLES_FLOAT_DIGITS
 from ..format.geometry import (
     BlockGeometry,
     encoded_block_bytes,
@@ -38,7 +38,7 @@ from ..format.geometry import (
     num_blocks_for,
 )
 from ..format.header import HeaderInfo
-from ..ops.bitpack import pack_codes, unpack_codes
+from ..ops import bitpack
 from ..ops.cseman import sign_extend16
 
 
@@ -140,7 +140,7 @@ def parse_block_headers(blocks, geo: BlockGeometry) -> BlockStates:
 
 def block_codes(blocks: torch.Tensor, geo: BlockGeometry) -> torch.Tensor:
     """(B, block_size) u8 blocks -> (B, C, T) u8 codes."""
-    return unpack_codes(blocks[:, geo.header_bytes : geo.header_bytes + geo.data_bytes], geo)
+    return bitpack.unpack_codes(blocks[:, geo.header_bytes : geo.header_bytes + geo.data_bytes], geo)
 
 
 def frame_stream(payload, header: HeaderInfo, geo: BlockGeometry) -> FramedStream:
@@ -180,9 +180,22 @@ def assemble_stream(header_bytes_arr, codes, geo: BlockGeometry, num_samples: in
     samples (reference: src/aad_encoder.c:661-726 loop bounds + EncodeWhole's
     write_size accounting).
     """
-    data = pack_codes(_tensor(codes), geo)  # (B, data_bytes)
+    data = bitpack.pack_codes(_tensor(codes), geo)  # (B, data_bytes)
     full = torch.cat([_tensor(header_bytes_arr), data], dim=-1)  # (B, block_size)
     nblocks = full.shape[0]
     valid_last = last_block_valid_samples(num_samples, geo.num_samples_per_block)
     tail_bytes = encoded_block_bytes(geo, valid_last)
     return torch.cat([full[: nblocks - 1].reshape(-1), full[nblocks - 1, :tail_bytes]])
+
+
+def block_sample_counts(header: HeaderInfo) -> np.ndarray:
+    """Valid sample count per block, shape (B,) int32."""
+    nspb = header.num_samples_per_block
+    counts = np.full(num_blocks_for(header.num_samples, nspb), nspb, dtype=np.int32)
+    counts[-1] = last_block_valid_samples(header.num_samples, nspb)
+    return counts
+
+
+def payload_offset() -> int:
+    """Where the payload starts in an .aad stream: after the file header."""
+    return FILE_HEADER_SIZE

@@ -39,15 +39,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every function returns a cudaError_t as int.
 _SIGNATURES = {
-    # codes, step_index, history, weight, step_table, index_table, out,
-    # num_blocks, num_channels, num_codes, bits_per_sample, device, stream
-    "aad_decode_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # bytes, skew, step_index, history, weight, step_table, index_table, out,
+    # num_blocks, num_channels, num_codes, block_bytes, data_offset,
+    # bits_per_sample, packed, device, stream
+    "aad_decode_lanes": (_P, _I) + (_P,) * 6 + (_I,) * 8 + (_P,),
     # step_table, out, device, stream
     "aad_stepsize_probe": (_P, _P, _I, _P),
     # samples, prev0, valid, step_index, history, weight, step_table,
     # index_table, codes, headers, states, num_blocks, num_lanes, nspb,
-    # bits_per_sample, num_trials, warm_on_prev, blocks_before, device, stream
-    "aad_encode_stream": (_P,) * 11 + (_I,) * 8 + (_P,),
+    # num_channels, bits_per_sample, packed, num_trials, warm_on_prev,
+    # blocks_before, device, stream
+    "aad_encode_stream": (_P,) * 11 + (_I,) * 10 + (_P,),
     # samples, step_index, history, weight, valid, step_table, index_table,
     # codes, step_index_out, history_out, weight_out, sse_out, num_lanes,
     # num_codes, bits_per_sample, device, stream

@@ -106,8 +106,8 @@ def decode_blocks(
     ``aad_tpu.ops.decode.decode_blocks`` does.
 
     ``"auto"``/``"fused"`` run the lanes through kernel 1
-    (``ops.fused_decode.decode_lanes``) as (L, 1, T) codes, whose lane order
-    is theirs; ``"pallas"`` runs phase A (:func:`compute_qdiffs_prefix`) on
+    (``ops.fused_decode.decode_lanes``) as (L, T) codes one a byte;
+    ``"pallas"`` runs phase A (:func:`compute_qdiffs_prefix`) on
     time-major codes and phase B through the LMS kernel (``ops.lms``). The
     wrappers run their plain versions on a CPU tensor and launch the kernel
     on a CUDA tensor. Shapes and output as :func:`decode_blocks_reference`;
@@ -130,7 +130,7 @@ def decode_blocks(
         rows = lms_lanes(qdiffs, history, weight)
     else:
         stepsize_corrections(codes.device)  # probes the kernel's table once per process and card
-        rows = decode_lanes(codes.to(torch.uint8).reshape(L, 1, T).contiguous(), step_index, history, weight,
+        rows = decode_lanes(codes.to(torch.uint8).reshape(L, T).contiguous(), step_index, history, weight,
                             bits_per_sample)
     return rows.to(torch.int32).reshape(*lanes, T + FILTER_ORDER)
 

@@ -20,10 +20,12 @@ come out as uint8. The CUDA kernels (``ops.fused_encode``,
 
 Not carried over, because they exist only for the TPU: the two-limb SSE
 (torch has int64), the Pallas per-pass pipeline
-``encode_stream_blocks_pallas`` and its tile relayout, the packed u32 code
-words of ``encode_stream_words`` (the wire assembly packs bytes directly),
-and ``encode_blocks_parallel_flat``, whose channel-major fold existed for
-the TPU's (8, 128) tiling.
+``encode_stream_blocks_pallas`` and its tile relayout, the u32 view of the
+packed code words of ``encode_stream_words`` (the port packs bytes, as the
+wire holds them: kernel 3 on the card, ``ops.fused_encode.encode_stream``
+with ``pack``, and ``bitpack.pack_codes`` in its plain version), and
+``encode_blocks_parallel_flat``, whose channel-major fold existed for the
+TPU's (8, 128) tiling.
 """
 
 from __future__ import annotations
@@ -288,13 +290,14 @@ def encode_blocks_parallel(
     ``stream`` is the sequential engine, with the contract of
     :func:`encode_stream_blocks_carry`: this plain version by default, or
     ``ops.fused_encode.encode_stream``, which launches the CUDA kernel on a
-    CUDA tensor.
+    CUDA tensor (and, given ``pack``, packs the codes).
 
     Args:
       blocks: (B, *lanes, nspb) zero-padded samples (mid/side applied).
       valid: (B,) valid sample counts (or broadcastable to (B, *lanes)).
     Returns:
-      (headers with leaves (B, *lanes[, 4]), codes (B, *lanes, T) uint8).
+      (headers with leaves (B, *lanes[, 4]), codes (B, *lanes, T) uint8, or
+      per block as ``stream`` gives them).
     """
     xs, vs, from_chunks = to_chunks(blocks, valid, chunk_blocks)
     warm = xs.shape[0] > 1  # the chunk-internal previous-block warm-up

@@ -2,7 +2,9 @@
 
 * :func:`decode_lanes` -> ``aad_decode_lanes`` (``csrc/decode.cu``), the
   port of the fused Pallas kernel ``aad_tpu/ops/pallas_decode.py::_make_kernel``:
-  the whole decode recurrence of every block x channel lane in one launch.
+  the whole decode recurrence of every block x channel lane in one launch,
+  reading the codes packed from each block's data region, as the TPU kernel
+  reads its packed code words (or one a byte, for the codes-level API).
 * :func:`stepsize_corrections` -> ``aad_stepsize_probe``, the port of the
   Pallas probe ``aad_tpu/ops/pallas_decode.py::stepsize_corrections``.
 
@@ -14,9 +16,9 @@ Not carried over from the TPU kernel, because they exist only for the TPU:
 
 * the f32 step-size formula and its correction set: the kernel reads the
   exact 256-entry int table, so the probe's correction set must be empty;
-* the u32 code words and the (8, 128) lane tiles: a thread is a lane here,
-  and the kernel takes the (B, C, T) code bytes of ``framing.block_codes``
-  as they are, staging each lane's next 64 codes in shared memory;
+* the u32 view of the code words and the (8, 128) lane tiles: a thread is a
+  lane here, and the kernel reads the wire's bytes as they are, staging the
+  bytes of each block's next 64 steps in shared memory;
 * the R-fold lane interleave, which gave the TPU's scheduler independent
   chains; on the GPU the warp scheduler interleaves warps instead;
 * the packed sample-pair output: the kernel writes int16 rows directly.
@@ -30,8 +32,9 @@ import numpy as np
 import torch
 
 from ..constants import FILTER_ORDER, STEPSIZE_TABLE_SIZE, TABLES_FLOAT_DIGITS
+from ..format.geometry import BlockGeometry
 from ..tables import STEPSIZE_TABLE
-from . import _build
+from . import _build, bitpack
 from .decode import decode_blocks_reference
 from .transitions import index_table, stepsize_from_index, stepsize_table
 
@@ -55,18 +58,22 @@ def _require(cond: bool, what: str) -> None:
 
 
 def decode_lanes_reference(
-    codes: torch.Tensor,
+    rows: torch.Tensor,
     step_index: torch.Tensor,
     history: torch.Tensor,
     weight: torch.Tensor,
     bits_per_sample: int,
+    geo: BlockGeometry | None = None,
 ) -> torch.Tensor:
-    """Plain version of ``aad_decode_lanes``, on any device.
-
-    The recurrence of ``ops.decode`` (phase A then phase B, vectorised over
-    lanes, looping over time), in the kernel's layout: (B, C, T) codes in,
-    (C * B, T + 4) int16 rows out, head samples first.
+    """Plain version of ``aad_decode_lanes``, on any device: the codes
+    unpacked (``bitpack.unpack_codes``), then the recurrence of ``ops.decode``
+    (phase A then phase B, vectorised over lanes, looping over time); inputs
+    and output as :func:`decode_lanes`.
     """
+    if geo is None:
+        codes = rows[:, None, :]  # (L, 1, T)
+    else:
+        codes = bitpack.unpack_codes(rows[:, geo.header_bytes : geo.header_bytes + geo.data_bytes], geo)
     B, C, T = codes.shape
     lanes = codes.transpose(0, 1).reshape(C * B, T)  # lane c * B + b: channel c of block b
     samples = decode_blocks_reference(lanes, step_index, weight, history, bits_per_sample=bits_per_sample)
@@ -74,20 +81,25 @@ def decode_lanes_reference(
 
 
 def decode_lanes(
-    codes: torch.Tensor,
+    rows: torch.Tensor,
     step_index: torch.Tensor,
     history: torch.Tensor,
     weight: torch.Tensor,
     bits_per_sample: int,
+    geo: BlockGeometry | None = None,
 ) -> torch.Tensor:
-    """Decode the L = C * B independent lanes of a block batch, T codes each.
+    """Decode the L independent lanes of a batch of blocks, T codes each.
 
-    Lanes are channel-major: lane ``c * B + b`` is channel ``c`` of block
-    ``b``, so the rows of one channel come out consecutive.
+    With ``geo``, ``rows`` is (B, geo.block_size) uint8 block rows, as
+    ``framing.split_blocks`` gives them, and the codes are read packed from
+    each row's data region (at ``geo.header_bytes``, the channels' units
+    interleaved, as on the wire): L = C * B lanes, lane ``c * B + b`` channel
+    ``c`` of block ``b`` (channel-major, so the rows of one channel come out
+    consecutive), T = ``geo.codes_per_block``. Without, ``rows`` is (L, T)
+    uint8 codes one a byte, lane ``l`` row ``l``, each below
+    2**bits_per_sample: the codes-level API (``ops.decode.decode_blocks``).
 
     Args:
-      codes:      (B, C, T) uint8 codes, as ``framing.block_codes`` gives
-                  them, each below 2**bits_per_sample.
       step_index: (L,) int32 initial Q4 step index (clamped to [0, 4080]).
       history:    (L, 4) int32 initial history, newest first.
       weight:     (L, 4) int32 initial weights.
@@ -96,10 +108,16 @@ def decode_lanes(
       followed by the T decoded samples.
     """
     _require(bits_per_sample in (2, 3, 4), f"bits_per_sample {bits_per_sample}")
-    _require(codes.dim() == 3, f"codes must be (B, C, T), got {tuple(codes.shape)}")
-    B, C, T = codes.shape
-    L = B * C
-    _require(codes.dtype == torch.uint8, f"codes must be uint8, got {codes.dtype}")
+    _require(rows.dim() == 2, f"rows must be 2-D, got {tuple(rows.shape)}")
+    _require(rows.dtype == torch.uint8, f"rows must be uint8, got {rows.dtype}")
+    if geo is None:
+        (L, T), C = rows.shape, 1
+        B, block_bytes, data_offset = L, T, 0
+    else:
+        _require(geo.bits_per_sample == bits_per_sample, f"geometry of {geo.bits_per_sample} bits")
+        _require(rows.shape[1] == geo.block_size, f"rows must be (B, {geo.block_size}), got {tuple(rows.shape)}")
+        B, C, T = rows.shape[0], geo.num_channels, geo.codes_per_block
+        L, block_bytes, data_offset = B * C, geo.block_size, geo.header_bytes
     for name, t, shape in (
         ("step_index", step_index, (L,)),
         ("history", history, (L, FILTER_ORDER)),
@@ -107,27 +125,29 @@ def decode_lanes(
     ):
         _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
         _require(tuple(t.shape) == shape, f"{name} must be {shape}, got {tuple(t.shape)}")
-        _require(t.device == codes.device, f"{name} is on {t.device}, codes on {codes.device}")
+        _require(t.device == rows.device, f"{name} is on {t.device}, rows on {rows.device}")
 
-    device = codes.device
+    device = rows.device
     if device.type == "cpu":
-        return decode_lanes_reference(codes, step_index, history, weight, bits_per_sample)
+        return decode_lanes_reference(rows, step_index, history, weight, bits_per_sample, geo)
     _require(device.type == "cuda", f"no kernel for device {device}")
-    for name, t in (("codes", codes), ("step_index", step_index),
+    for name, t in (("rows", rows), ("step_index", step_index),
                     ("history", history), ("weight", weight)):
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    if codes.data_ptr() % 4:
-        codes = codes.clone()  # the kernel copies 4-byte words from 4-byte boundaries
 
     out = torch.empty((L, T + FILTER_ORDER), dtype=torch.int16, device=device)
     if L == 0:
         return out
+    # the kernel copies 4-byte words from 4-byte boundaries: it takes the
+    # rows from the boundary at or before them, and how far before
+    skew = rows.data_ptr() % 4
     lib = _build.library()
     err = lib.aad_decode_lanes(
-        codes.data_ptr(), step_index.data_ptr(), history.data_ptr(),
+        rows.data_ptr() - skew, skew, step_index.data_ptr(), history.data_ptr(),
         weight.data_ptr(), stepsize_table(device).data_ptr(),
         index_table(bits_per_sample, device).data_ptr(), out.data_ptr(),
-        B, C, T, bits_per_sample, *_build.launch_target(device),
+        B, C, T, block_bytes, data_offset, bits_per_sample, int(geo is not None),
+        *_build.launch_target(device),
     )
     _build.check(lib, DECODE_KERNEL, err)
     launches[DECODE_KERNEL] += 1

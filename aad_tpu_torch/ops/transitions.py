@@ -125,6 +125,15 @@ def _apply_qdiff(state: CodecState, qdiff: torch.Tensor, pred: torch.Tensor) -> 
     return CodecState(history, state.weight + wdelta, state.step_index), sample
 
 
+def decode_sample(state: CodecState, code: torch.Tensor, bits_per_sample: int) -> tuple[CodecState, torch.Tensor]:
+    """One decode step; returns (state', sample) (reference:
+    src/aad_decoder.c:269-318)."""
+    qdiff = quantized_diff(stepsize_from_index(state.step_index), code, bits_per_sample)
+    pred = predict(state.history, state.weight)
+    state = state._replace(step_index=update_step_index(state.step_index, code, bits_per_sample))
+    return _apply_qdiff(state, qdiff, pred)
+
+
 def encode_sample(
     state: CodecState, sample: torch.Tensor, bits_per_sample: int
 ) -> tuple[CodecState, torch.Tensor, torch.Tensor]:

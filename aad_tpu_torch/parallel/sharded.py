@@ -36,8 +36,10 @@ Not carried over from ``aad_tpu``:
 * padding to even shards, which ``shard_map`` needs: a shard takes the k-th
   piece of ceil(n / size) items, as JAX places them, so the last pieces may
   be short or empty, and there is no padding to trim;
-* the packed u32 kernel words of the sequence-parallel encode, a TPU
-  layout: its codes come out as uint8, as ``encode_blocks_parallel``'s do;
+* the packed u32 code words of the sequence-parallel encode: its contract
+  here is the codes-level one of ``encode_blocks_parallel``, one code a
+  byte, which kernel 3 writes as such (the codec's entry points take the
+  codes packed as the wire holds them, ``codec.encoder``);
 * its ``engine`` knob (``"scan"``/``"pallas"``): a CUDA shard launches
   kernel 3 and a CPU shard runs its plain version, as every encode of the
   port does;

@@ -15,10 +15,14 @@ failure exits non-zero:
 3. probe: the step-size probe kernel reads exactly ``STEPSIZE_TABLE``; and
    the launch floor, a one-element torch op timed by CUDA events over 1,000
    launches, against which phase 6 holds the probe;
-4. each decode kernel against its plain torch version, bit for bit: bps
-   2/3/4, (B, C, T) codes with C = 1 and 2, lane counts that are not
-   multiples of the 64-lane CTA, T = 1, T + 4 odd or not a multiple of 8, T
-   not a multiple of the 64-position row tile, codes off a 4-byte boundary,
+4. each decode kernel against its plain torch version, bit for bit: kernel 1
+   on block rows, its codes packed in their data regions, at bps 2/3/4 with
+   C = 1 and 2, block sizes 256 and 1024 (the 3-bit ones 255, 252, 1023 and
+   1020 bytes), small blocks of a few units, a mono data region (18 bytes
+   into its block) and rows off a 4-byte boundary, block counts that are not
+   multiples of a CTA's; and on (L, T) codes one a byte (the codes-level
+   unit), lane counts that are not multiples of the 64-lane CTA, T = 1, T + 4
+   odd or not a multiple of 8, T not a multiple of the 64-position row tile;
    step indices 0, 4080 and 4081-4095, weights and histories over all of
    int32 (the sums wrap);
 5. the decode main path at full size: the benchmark's 10-minute stereo 4-bit
@@ -32,14 +36,19 @@ failure exits non-zero:
    main path's shapes, kernel 1's bound from its step loop's instructions
    by pipe (``cuobjdump -sass``), how its CTAs spread over the SMs, the
    device-resident decode and the transfer-inclusive ``decode()``, and the
-   resident decode's device time by kernel under ``torch.profiler``, which
-   must show no time-major copy of the codes;
+   resident decode's device time by kernel under ``torch.profiler``, beside
+   that of the design that took the codes one a byte, which must show no
+   time-major copy of the codes and no operation on a tensor of the codes
+   (an unpack);
 7. each encode kernel against its plain torch version, bit for bit: bps
    2/3/4, trials 0/1/2, the previous-block warm-up on and off (the serial
    and the paired schedule, its samples staged or not), per-block
    states, a carry in with blocks_before 0 and > 0, ragged valid counts
    below 4, lane counts that are not multiples of 32, forged states whose
-   sums wrap, and ``aad_encode_pass`` measuring and emitting;
+   sums wrap, codes one a byte and packed (against ``pack_codes`` of the
+   plain version's codes; mono and stereo, 3-bit with a ragged tail, 4,098
+   lanes past the staging gate, full 1024-byte blocks), and
+   ``aad_encode_pass`` measuring and emitting;
 8. the encode main path at full width: the 10-minute stereo 4-bit signal
    (58,066 lanes) through ``aad_tpu_torch.encode(..., device="cuda",
    parallel_blocks=True)`` with trials 2, and with chunks of 4 and a warm
@@ -63,7 +72,8 @@ failure exits non-zero:
    kernel takes); the device-resident and transfer-inclusive parallel
    encode, and the sequential 60-second encode; the device time by kernel
    of the resident parallel and the sequential encode under
-   ``torch.profiler``;
+   ``torch.profiler``, the parallel one beside that of the design that
+   wrote the codes one a byte;
 10. the LMS kernel of the two-phase decode engine against its plain torch
    version, bit for bit: bps 2/3/4, qdiffs from ``compute_qdiffs_prefix``
    of random codes (half the lanes at the top step), the shapes of phase 4
@@ -213,10 +223,17 @@ LATENCY = {"LDS": 23, "LDG": 33}
 # VIADD among them (its pipe is not documented), counts for issue only.
 ALU_OPCODES = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "IMNMX", "VIMNMX", "VIADDMNMX", "SEL", "PRMT",
                "MOV", "IABS", "SGXT", "BMSK", "PLOP3", "FSEL"}
-DECODE_SYMBOL = "decode_lanes_kernelILi4E"  # aad_decode_lanes at 4 bits, as on the main path
+DECODE_SYMBOL = "decode_lanes_kernelILi4ELb1ELi2E"  # aad_decode_lanes at 4 bits, packed, stereo: the main path
 LMS_SYMBOL = "lms_lanes_kernel"
-SERIAL_SYMBOL = "encode_stream_kernelILi4E"  # aad_encode_stream's serial schedule, 4 bits
-PAIRED_SYMBOL = "encode_stream_paired_kernelILi4ELb1E"  # its paired schedule, staged (the sequential shape's)
+SERIAL_SYMBOL = "encode_stream_kernelILi4ELb1E"  # aad_encode_stream's serial schedule, 4 bits, packed
+PAIRED_SYMBOL = "encode_stream_paired_kernelILi4ELb1ELb1E"  # its paired schedule, staged, packed (the sequential shape's)
+# Device time a call of the resident fused decode of the bench stream and of
+# the resident parallel encode of the 10-minute signal took when kernel 1
+# read the codes one a byte, unpacked by torch ops, and kernel 3 wrote them
+# so, packed by torch ops (PERF.md section 5: NVIDIA H100 80GB HBM3, 700 W);
+# the profiles print theirs beside.
+BYTE_CODES_DECODE_MS = 0.7098
+BYTE_CODES_PARALLEL_ENCODE_MS = 2.4646
 PASS_SYMBOL = "encode_pass_kernelILi4E"
 # Lane counts of kernel 3's sweep: the sequential path's 2 (its channels), the
 # widest launch that stages its samples (csrc/encode.cu: kStageMaxLanes),
@@ -243,10 +260,10 @@ def sass_text() -> str:
                           capture_output=True, text=True, check=True).stdout
 
 
-def sass_loop(symbol: str, marker: str, without: str = "") -> list[tuple[str, str, str]]:
+def sass_loop(symbol: str, marker: str, without: tuple[str, ...] = ()) -> list[tuple[str, str, str]]:
     """The instructions (guard, opcode, operands) of the longest innermost
     loop (a backward branch) that holds an instruction of opcode ``marker``
-    and none of opcode ``without``, in the kernel whose mangled name
+    and none of the opcodes ``without``, in the kernel whose mangled name
     contains ``symbol``."""
     funcs = [f for f in sass_text().split("Function : ")[1:] if symbol in f.split("\n", 1)[0]]
     check(len(funcs) == 1, f"{len(funcs)} functions named like {symbol} in the SASS")
@@ -256,7 +273,7 @@ def sass_loop(symbol: str, marker: str, without: str = "") -> list[tuple[str, st
     innermost = [(a, b) for a, b in loops if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
     bodies = [[(g, op, args) for addr, g, op, args in insns if a <= addr <= b] for a, b in innermost]
     opcodes = [{op.split(".")[0] for _, op, _ in body} for body in bodies]
-    return max((body for body, ops in zip(bodies, opcodes) if marker in ops and without not in ops), key=len)
+    return max((body for body, ops in zip(bodies, opcodes) if marker in ops and not ops & set(without)), key=len)
 
 
 def sample_loads(loop: list[tuple[str, str, str]]) -> int:
@@ -394,14 +411,19 @@ def bench_stream(num_samples, nch=2, bps=4, ms=False, seed=SEED, max_block_size=
     return at.encode_header(header) + payload.numpy().tobytes(), header
 
 
-def profile(label, fn, iters, time_major=None, host_rows=0):
+def profile(label, fn, iters, time_major=None, host_rows=0, codes=()):
     """Print the device time by kernel of ``fn`` under torch.profiler, per
     call, beside its CUDA-event time without the profiler; with
     ``host_rows``, also that many host operations by their own host time.
 
     With ``time_major=(T, L)`` it also counts, per call, the copies that
     make a (T, ...) tensor of T * L elements: the time-major relayout of the
-    codes that phase A takes. Returns that count, or None.
+    codes that phase A takes. With ``codes``, sizes in elements, it counts
+    the operations that take a tensor of one of them: a tensor of the codes
+    one a byte (L * T) or of the data regions (B * data_bytes), which only
+    an unpack or a pack of the codes makes. Returns {"device_ms": the device
+    time a call, "copies": the first count, "code_ops": the second}, each
+    count None where it was not asked for.
     """
     import torch
     from torch.autograd import DeviceType
@@ -410,7 +432,7 @@ def profile(label, fn, iters, time_major=None, host_rows=0):
 
     window_ms = cuda_ms(fn, iters, warmup=1)
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                       record_shapes=time_major is not None) as prof:
+                       record_shapes=time_major is not None or bool(codes)) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -433,16 +455,24 @@ def profile(label, fn, iters, time_major=None, host_rows=0):
         print(f"[profile]   host: {sum(r[0] for r in host):.4f} ms a call of host time in operations under it")
     for ms, count, name in host[:host_rows]:
         print(f"[profile]   host {ms:.4f} ms x{count:g} {name[:100]}")
-    if time_major is None:
-        return None
-    T, L = time_major
-    copies = sum(
-        e.count for e in prof.key_averages(group_by_input_shape=True)
-        if e.device_type == DeviceType.CPU and e.key in ("aten::clone", "aten::contiguous")
-        and any(len(s) > 1 and s[0] == T and int(np.prod(s)) == T * L for s in e.input_shapes)
-    ) / iters
-    print(f"[profile]   time-major copies of the {T} x {L} codes: {copies:g} a call")
-    return copies
+    out = {"device_ms": busy, "copies": None, "code_ops": None}
+    by_shape = prof.key_averages(group_by_input_shape=True) if time_major is not None or codes else []
+    if time_major is not None:
+        T, L = time_major
+        out["copies"] = sum(
+            e.count for e in by_shape
+            if e.device_type == DeviceType.CPU and e.key in ("aten::clone", "aten::contiguous")
+            and any(len(s) > 1 and s[0] == T and int(np.prod(s)) == T * L for s in e.input_shapes)
+        ) / iters
+        print(f"[profile]   time-major copies of the {T} x {L} codes: {out['copies']:g} a call")
+    if codes:
+        ops = [e for e in by_shape if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+               and any(s and int(np.prod(s)) in codes for s in e.input_shapes)]
+        out["code_ops"] = sum(e.count for e in ops) / iters
+        names = sorted({e.key for e in ops})
+        print(f"[profile]   operations on a tensor of the codes ({' or '.join(map(str, codes))} elements): "
+              f"{out['code_ops']:g} a call{' (' + ', '.join(names) + ')' if names else ''}")
+    return out
 
 
 def grid_line(symbol: str, L: int, cuda) -> str:
@@ -492,6 +522,10 @@ def cuda_ms(fn, iters, warmup=2):
 # multiple of 8, T not a multiple of 64, T = 1, lane counts that are not
 # multiples of 64.
 EDGE_SHAPES = ((1, 1, 1), (33, 2, 1), (70, 1, 21), (65, 2, 61), (129, 1, 124), (31, 2, 125), (64, 1, 128))
+# Kernel 1 on block rows: (max block size, or 0 for a block of 3 units;
+# blocks, not a multiple of a CTA's 64 / C; bytes the rows start past a
+# 4-byte boundary).
+ROW_CASES = ((1024, 1025, 0), (256, 333, 2), (0, 70, 1), (1024, 67, 3))
 
 
 def int32_wide(rng, L) -> np.ndarray:
@@ -502,12 +536,11 @@ def int32_wide(rng, L) -> np.ndarray:
     return a
 
 
-def lane_inputs(rng, B, C, T, bps):
-    """(B, C, T) codes and channel-major lane states for aad_decode_lanes."""
+def lane_inputs(rng, L, T, bps):
+    """(L, T) codes one a byte and lane states for aad_decode_lanes."""
     import torch
 
-    L = B * C
-    codes = rng.integers(0, 2**bps, (B, C, T), dtype=np.uint8)
+    codes = rng.integers(0, 2**bps, (L, T), dtype=np.uint8)
     si = rng.integers(0, 4096, (L,)).astype(np.int32)
     si[: min(17, L)] = [0, 4080, *range(4081, 4096)][: min(17, L)]  # wire values, before the parse clamp
     hist = int32_wide(rng, L)
@@ -590,6 +623,43 @@ def encode_kernel_checks(cuda) -> tuple[int, int]:
         check(err == 0, f"aad_encode_stream != plain at {what}: max |err| {err}")
         stream_err = max(stream_err, err)
         print(f"[kernel-vs-plain] aad_encode_stream {what}: bit-exact")
+
+    # packed: each block's data region against pack_codes of the plain
+    # version's codes; (trials, warm-up, lanes, max block size, blocks): the
+    # serial schedule (trials 0; no warm-up), the paired one staged and, at
+    # 4,098 lanes, not; a full 1024-byte block at the sequential path's 2
+    # lanes (stereo 4-bit only: the plain version takes seconds a block)
+    import aad_tpu_torch as at
+
+    packed = [(0, True, 531, 64, 3), (2, False, 531, 96, 3), (1, True, 333, 64, 3), (2, True, 333, 96, 3),
+              (2, True, 4098, 64, 2), (2, True, 2, 1024, 1)]
+    for bps in (2, 3, 4):
+        for C in (1, 2):
+            for j, (trials, warm, lanes, block, B) in enumerate(packed):
+                if block == 1024 and (bps, C) != (4, 2):
+                    continue
+                rows = lanes // C
+                geo = at.compute_block_geometry(block, C, bps)
+                nspb = geo.num_samples_per_block
+                x = torch.from_numpy(loud_int16(rng, (B, rows, C, nspb)))
+                valid = rng.integers(0, nspb + 1, (B, rows, C)).astype(np.int32)
+                valid[:, :5] = np.array([0, 1, 3, 4, nspb])[: min(rows, 5), None]  # ragged: whole rows alike
+                valid = torch.from_numpy(valid)
+                st = forged_state(rng, rows * C)
+                carry = (st.map(lambda a: a.reshape(rows, C, *a.shape[1:])),
+                         torch.from_numpy(loud_int16(rng, (rows, C, nspb))))
+                kw = dict(carry=carry, blocks_before=j % 3, warm_on_prev=warm, need_carry=False, pack=geo)
+                want = fe.encode_stream_reference(x, valid, bps, trials, **kw)
+                kw["carry"] = (carry[0].to(cuda), carry[1].to(cuda))
+                got = fe.encode_stream(x.to(cuda), valid.to(cuda), bps, trials, **kw)
+                torch.cuda.synchronize()
+                check(got[1].shape == (B, rows, geo.data_bytes), f"packed codes {tuple(got[1].shape)}")
+                err = max(max_err(tuple(got[0]), tuple(want[0])), max_err(got[1], want[1]))
+                what = (f"packed, bps={bps} C={C} trials={trials} warm_on_prev={warm} blocks={B} lanes={rows * C} "
+                        f"nspb={nspb} ({geo.data_bytes}-byte data regions) carry=forged blocks_before={j % 3}")
+                check(err == 0, f"aad_encode_stream != plain at {what}: max |err| {err}")
+                stream_err = max(stream_err, err)
+                print(f"[kernel-vs-plain] aad_encode_stream {what}: == pack_codes of the plain codes, bit-exact")
 
     pass_err = 0
     T, L = 988, 1061
@@ -741,29 +811,34 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     # aad_encode_stream as the parallel main path launches it: one block per
     # lane, lanes = blocks x channels, trials 2, no previous-block warm-up
     blocks, valid = _pad_to_blocks(pcm_t, geo, 0, -(-n // nspb))
-    lanes = blocks.reshape(1, -1, nspb)  # (1, B * C, nspb)
-    L = lanes.shape[1]
+    lanes = blocks[None]  # (1, B, C, nspb): every block a lane of its row, its codes packed
+    B = blocks.shape[0]
+    L = B * geo.num_channels
     lane_valid = valid[:, None].expand(-1, geo.num_channels).reshape(1, L).contiguous()
-    samples = lanes.transpose(1, 2).contiguous()
+    samples = lanes.reshape(1, L, nspb).transpose(1, 2).contiguous()
     args = (samples, lane_valid, CodecState.zeros((L,), cuda), None, bps, trials)
-    codes, headers, _ = fe.encode_stream_tm(*args, warm_on_prev=False)
-    want_h, want_c, _ = fe.encode_stream_reference(lanes, lane_valid, bps, trials, warm_on_prev=False, need_carry=False)
-    full_err = max(max_err(codes[0].t(), want_c[0]), max_err(headers[0, 8], want_h.step_index[0]),
-                   max_err(headers[0, 9], want_h.shift[0]), max_err(headers[0, 4:8].t(), want_h.weight[0]),
-                   max_err(headers[0, 0:4].t(), want_h.history[0]))
+    codes, headers, _ = fe.encode_stream_tm(*args, warm_on_prev=False, pack=geo)
+    plain_args = (lanes, lane_valid.reshape(1, B, geo.num_channels), bps, trials)
+    want_h, want_c, _ = fe.encode_stream_reference(*plain_args, warm_on_prev=False, need_carry=False, pack=geo)
+    full_err = max(max_err(codes, want_c), max_err(headers[0, 8], want_h.step_index.reshape(-1)),
+                   max_err(headers[0, 9], want_h.shift.reshape(-1)),
+                   max_err(headers[0, 4:8].t(), want_h.weight.reshape(L, 4)),
+                   max_err(headers[0, 0:4].t(), want_h.history.reshape(L, 4)))
     check(full_err == 0, f"aad_encode_stream != plain on the card at the main-path shape: {full_err}")
     del codes, headers, want_h, want_c
-    stream_ms = cuda_ms(lambda: fe.encode_stream_tm(*args, warm_on_prev=False), ENCODE_ITERS)
+    stream_ms = cuda_ms(lambda: fe.encode_stream_tm(*args, warm_on_prev=False, pack=geo), ENCODE_ITERS)
     stream_plain_ms = cuda_ms(
-        lambda: fe.encode_stream_reference(lanes, lane_valid, bps, trials, warm_on_prev=False, need_carry=False),
+        lambda: fe.encode_stream_reference(*plain_args, warm_on_prev=False, need_carry=False, pack=geo),
         1, warmup=0,
     )
     n_live = torch.clamp(lane_valid - 4, 0, T)
     steps = int((trials * n_live * (lane_valid >= 4)).sum()) + L * T  # measures (data-dependent) + emit
     # each sample-pass at the serial schedule's measure loop, by pipe
-    serial_loop = sass_loop(SERIAL_SYMBOL, "LDG", without="STG")
+    serial_loop = sass_loop(SERIAL_SYMBOL, "LDG", without=("STG", "STS"))  # the measure, not the staged emit
     serial_sass = pipe_counts([op for _, op, _ in serial_loop], sample_loads(serial_loop))
-    stream_bound, stream_pipe = loop_bound(L * nspb * 2 + L * 4 + L * 36 + L * T + L * 40, steps, serial_sass)
+    # the bytes: samples, valid counts and states in, packed data regions and header fields out
+    stream_bound, stream_pipe = loop_bound(L * nspb * 2 + L * 4 + L * 36 + B * geo.data_bytes + L * 40, steps,
+                                           serial_sass)
 
     # aad_encode_pass as the sequential path launches it: the carry pass over
     # one chunk's last block, 2 lanes (the channels), every slot live
@@ -778,7 +853,7 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     pass_ms = cuda_ms(lambda: ep.encode_pass(*pass_args), KERNEL_ITERS)
     pass_plain_ms = cuda_ms(lambda: ep.encode_pass_reference(*pass_args), 3, warmup=1)
     # its loop as the measure runs it: issue by pipe, and the loop-carried chain
-    pass_loop = sass_loop(PASS_SYMBOL, "LDG", without="STG")
+    pass_loop = sass_loop(PASS_SYMBOL, "LDG", without=("STG",))
     loop_samples = sample_loads(pass_loop)
     pass_sass = pipe_counts([op for _, op, _ in pass_loop], loop_samples)
     pass_bound, pass_pipe = loop_bound(T * 2 * 2 + 2 * (36 + 4) + 2 * (36 + 8), 2 * T, pass_sass)
@@ -794,15 +869,16 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     seq_args = (chunk.transpose(1, 2).contiguous(), chunk_valid[:, None].expand(-1, 2).contiguous(),
                 CodecState.zeros((2,), cuda), _pad_to_blocks(seq_t, geo, cb - 1, 1)[0][0].t().contiguous(),
                 bps, trials)
-    seq_stream_ms = cuda_ms(lambda: fe.encode_stream_tm(*seq_args, warm_on_prev=True, blocks_before=cb), 3, warmup=1)
+    seq_kw = dict(warm_on_prev=True, blocks_before=cb, pack=geo)
+    seq_stream_ms = cuda_ms(lambda: fe.encode_stream_tm(*seq_args, **seq_kw), 3, warmup=1)
     # the timed launch's first SEQ_CHECK_BLOCKS blocks against the plain
     # version (on the host: it takes seconds a block) on the same carry
-    got_c, got_h, _ = fe.encode_stream_tm(*seq_args, warm_on_prev=True, blocks_before=cb)
+    got_c, got_h, _ = fe.encode_stream_tm(*seq_args, **seq_kw)
     k = SEQ_CHECK_BLOCKS
     want_h, want_c, _ = fe.encode_stream_reference(
         chunk[:k].cpu(), chunk_valid[:k].cpu(), bps, trials, carry=(CodecState.zeros((2,), "cpu"), seq_args[3].t().cpu()),
-        blocks_before=cb, need_carry=False)
-    seq_err = max(max_err(got_c[:k].transpose(1, 2), want_c), max_err(got_h[:k, 8], want_h.step_index),
+        blocks_before=cb, need_carry=False, pack=geo)
+    seq_err = max(max_err(got_c[:k, 0], want_c), max_err(got_h[:k, 8], want_h.step_index),
                   max_err(got_h[:k, 9], want_h.shift), max_err(got_h[:k, 4:8].transpose(1, 2), want_h.weight),
                   max_err(got_h[:k, 0:4].transpose(1, 2), want_h.history))
     check(seq_err == 0, f"aad_encode_stream != plain at the sequential shape: {seq_err}")
@@ -815,7 +891,7 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     seq_loop = sass_loop(PAIRED_SYMBOL, "LDS")
     seq_samples = sample_loads(seq_loop)
     check(seq_samples > 0, "no sample loads in the paired schedule's step loop")
-    seq_stream_bound, _ = loop_bound(cb * nspb * 2 * 2 + nspb * 2 * 2 + 2 * 36 + cb * 2 * (T + 40), seq_steps,
+    seq_stream_bound, _ = loop_bound(cb * nspb * 2 * 2 + nspb * 2 * 2 + 2 * 36 + cb * (geo.data_bytes + 2 * 40), seq_steps,
                                      pipe_counts([op for _, op, _ in seq_loop], seq_samples))
     seq_cycles, seq_chain = latency_line(seq_loop, seq_samples)
     seq_chain_passes = cb * (3 if trials == 1 else 2 * trials) * T
@@ -829,7 +905,8 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
         x = flat.repeat(-(-need // flat.numel()))[:need].reshape(4, nspb, lanes_n)
         sweep_args = (x, torch.full((4, lanes_n), nspb, dtype=torch.int32, device=cuda),
                       CodecState.zeros((lanes_n,), cuda), x[-1].flip(0).contiguous(), bps, trials)
-        ms = cuda_ms(lambda: fe.encode_stream_tm(*sweep_args, warm_on_prev=True, blocks_before=4), 3, warmup=1)
+        ms = cuda_ms(lambda: fe.encode_stream_tm(*sweep_args, warm_on_prev=True, blocks_before=4, pack=geo), 3,
+                     warmup=1)
         sweep.append((lanes_n, ms))
         del x, sweep_args
 
@@ -845,11 +922,17 @@ def encode_times(cuda, card, main, stream_err, pass_err) -> list[dict]:
     for _ in range(2):
         at.encode(seq_pcm, cfg, device="cuda")
     seq_s = (time.perf_counter() - t0) / 2
-    profile("device-resident parallel encode, 10-minute stream", lambda: enc.encode_payload_ondevice(pcm_t), 10)
+    par_prof = profile("device-resident parallel encode, 10-minute stream", lambda: enc.encode_payload_ondevice(pcm_t),
+                       10, codes=(L * T,))
+    check(par_prof["code_ops"] == 0, f"the parallel encode makes a tensor of its codes one a byte "
+                                     f"({par_prof['code_ops']} operations a call)")
+    print(f"[profile]   resident parallel encode: {par_prof['device_ms']:.4f} ms of device time a call, beside "
+          f"{BYTE_CODES_PARALLEL_ENCODE_MS:.4f} ms when kernel 3 wrote its codes one a byte and torch ops packed "
+          f"them ({card})")
     profile(f"sequential encode() of {SEQ_SECONDS} s", lambda: at.encode(seq_pcm, cfg, device="cuda"), 1)
 
     print(f"[time] card: {card}")
-    print(f"[time] aad_encode_stream {L} lanes x 1 block of {nspb}, 4-bit trials {trials}, parallel: "
+    print(f"[time] aad_encode_stream {L} lanes x 1 block of {nspb}, 4-bit trials {trials}, parallel, packed: "
           f"kernel {stream_ms:.4f} ms, plain torch on the card {stream_plain_ms:.4f} ms, "
           f"bound {stream_bound[0]:.4f} ms ({stream_bound[1]}; {steps} sample-passes) ({card})")
     print(f"[sass] aad_encode_stream serial schedule, 4-bit, measure: {sass_line(serial_sass, stream_pipe)}")
@@ -1138,12 +1221,15 @@ def slice_times(cuda, card, bench, slice_run, lms_err) -> dict:
         se.finish()
 
     stream_enc_s = host_s(stream_encode, 1)
-    copies = profile("device-resident two-phase (pallas) decode, bench stream",
-                     lambda: pallas.decode_payload_ondevice(payload), 10, time_major=(T, L))
-    check(copies >= 1, "the profile does not see the two-phase decode's time-major code copy")
-    fused_copies = profile("device-resident fused decode, bench stream",
-                           lambda: fused.decode_payload_ondevice(payload), 10, time_major=(T, L))
-    check(fused_copies == 0, f"the fused decode copies the codes time-major ({fused_copies} a call)")
+    code_numels = (L * T, B * geo.data_bytes)  # the codes one a byte; the data regions' unpack
+    two = profile("device-resident two-phase (pallas) decode, bench stream",
+                  lambda: pallas.decode_payload_ondevice(payload), 10, time_major=(T, L), codes=code_numels)
+    check(two["copies"] >= 1, "the profile does not see the two-phase decode's time-major code copy")
+    check(two["code_ops"] >= 1, "the profile does not see the two-phase decode's unpack of the codes")
+    one = profile("device-resident fused decode, bench stream",
+                  lambda: fused.decode_payload_ondevice(payload), 10, time_major=(T, L), codes=code_numels)
+    check(one["copies"] == 0, f"the fused decode copies the codes time-major ({one['copies']} a call)")
+    check(one["code_ops"] == 0, f"the fused decode unpacks the codes ({one['code_ops']} operations a call)")
 
     print(f"[time] card: {card}")
     print(f"[grid] aad_lms_lanes: {grid_line(LMS_SYMBOL, L, cuda)}")
@@ -1300,17 +1386,17 @@ def transfer_native_phase(cuda, card, bench, main, slice_run, first_decode_s) ->
     blocks = pad_to_blocks(torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()), chunk,
                            geo).to(cuda)
     states = parse_block_headers(blocks, geo)
-    codes = block_codes(blocks, geo)
+    codes = block_codes(blocks, geo)  # phase A's input
     B, C, T = codes.shape
-    lanes = (codes, states.step_index.t().reshape(-1).contiguous(),
+    lanes = (blocks, states.step_index.t().reshape(-1).contiguous(),
              states.history.transpose(0, 1).reshape(-1, 4).contiguous(),
-             states.weight.transpose(0, 1).reshape(-1, 4).contiguous())
-    err1 = max_err(fd.decode_lanes(*lanes, 4), fd.decode_lanes_reference(*lanes, 4))
+             states.weight.transpose(0, 1).reshape(-1, 4).contiguous(), 4, geo)
+    err1 = max_err(fd.decode_lanes(*lanes), fd.decode_lanes_reference(*lanes))
     qdiffs = compute_qdiffs_prefix(codes.permute(2, 1, 0).reshape(T, C * B).contiguous(),
                                    cs.clip(lanes[1], 0, STEP_INDEX_MAX), 4, dim=0)
     err5 = max_err(lms.lms_lanes(qdiffs, lanes[2], lanes[3]), lms.lms_lanes_reference(qdiffs, lanes[2], lanes[3]))
     check(err1 == 0 and err5 == 0, f"kernels at decode()'s chunk: max |err| {err1}, {err5}")
-    k1_ms = cuda_ms(lambda: fd.decode_lanes(*lanes, 4), KERNEL_ITERS)
+    k1_ms = cuda_ms(lambda: fd.decode_lanes(*lanes), KERNEL_ITERS)
     k5_ms = cuda_ms(lambda: lms.lms_lanes(qdiffs, lanes[2], lanes[3]), KERNEL_ITERS)
     print(f"[time] at decode()'s chunk, {C * B} lanes x {T} codes (the bench stream's first chunk): "
           f"aad_decode_lanes {k1_ms:.4f} ms, aad_lms_lanes {k5_ms:.4f} ms a launch, both == plain, bit-exact ({card})")
@@ -1442,7 +1528,8 @@ def batch_encode_phase(cuda, card, main) -> dict:
     from aad_tpu_torch.ops.transitions import CodecState
 
     cfg, pcm = main["cfg"], main["pcm"]
-    nspb = cfg.geometry().num_samples_per_block
+    geo = cfg.geometry()
+    nspb = geo.num_samples_per_block
     T = nspb - 4
     rng = np.random.default_rng(SEED + 6)
 
@@ -1490,12 +1577,12 @@ def batch_encode_phase(cuda, card, main) -> dict:
     check(max_err(tuple(carry[0].map(lambda a: a.reshape(L, *a.shape[2:]))), tuple(want_pass[0])) == 0,
           "the pile's carry != the plain pass over chunk 0's last block")
     got_h, got_c, _ = fe.encode_stream(blocks[cb : 2 * cb], valid[cb : 2 * cb], bps, trials,
-                                       carry=carry, blocks_before=cb, need_carry=False)
+                                       carry=carry, blocks_before=cb, need_carry=False, pack=geo)
     k = SEQ_CHECK_BLOCKS
     with cpu_threads(1):
         want_h, want_c, _ = fe.encode_stream_reference(
             blocks[cb : cb + k].cpu(), valid[cb : cb + k].cpu(), bps, trials,
-            carry=(carry[0].map(lambda a: a.cpu()), carry[1].cpu()), blocks_before=cb, need_carry=False)
+            carry=(carry[0].map(lambda a: a.cpu()), carry[1].cpu()), blocks_before=cb, need_carry=False, pack=geo)
     stream_err = max(max_err(got_c[:k], want_c), max_err(tuple(f[:k] for f in got_h), tuple(want_h)))
     check(stream_err == 0, f"aad_encode_stream != plain on the pile's chunk 1: {stream_err}")
     print(f"[kernel-vs-plain] the pile's chunked launches: aad_encode_pass {T} codes x {L} lanes over chunk 0's "
@@ -1711,6 +1798,7 @@ def sharding_phase(cuda, card, bench, main) -> dict:
     from aad_tpu_torch.codec.batch_encode import _stage
     from aad_tpu_torch.codec.encoder import _block_bytes, _pad_to_blocks, payload_size
     from aad_tpu_torch.ops import fused_decode as fd, fused_encode as fe, lms
+    from aad_tpu_torch.ops.bitpack import pack_codes
     from aad_tpu_torch.ops.decode import decode_blocks
     from aad_tpu_torch.ops.encode import encode_blocks_parallel
     from aad_tpu_torch.parallel import sharded as ts
@@ -1856,7 +1944,9 @@ def sharding_phase(cuda, card, bench, main) -> dict:
             gh, gc = ts.gather(hs, cuda), ts.gather(codes, cuda)
             check(torch.equal(gc, uc) and all(torch.equal(a, b) for a, b in zip(gh, uh)),
                   f"sequence-parallel encode ({label}, {kw}) != unsharded encode_blocks_parallel")
-            payload = _block_bytes(gh, gc, geo).reshape(-1)[: payload_size(geo, N)].cpu().numpy().tobytes()
+            # its codes one a byte, the codes-level contract, packed here to assemble the stream
+            payload = _block_bytes(gh, pack_codes(gc, geo), geo).reshape(-1)[: payload_size(geo, N)]
+            payload = payload.cpu().numpy().tobytes()
             check(whole == at.encode_header(cfg.header_for(N)) + payload,
                   f"sequence-parallel encode ({label}, {kw}) bytes != encode(parallel_blocks=True)")
             print(f"[shard] encode_blocks_parallel_sharded chunks of {c}, {wp} warm passes, {nblocks} blocks, "
@@ -1940,21 +2030,35 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     decode_err = 0
     for bps in (2, 3, 4):
-        for B, C, T in ((2050, 2, 988), (333, 1, 2684), *EDGE_SHAPES):
-            args = lane_inputs(rng, B, C, T, bps)
+        for C in (1, 2):
+            for block, B, skew in ROW_CASES:
+                geo = at.compute_block_geometry(block or 1024, C, bps)
+                if not block:
+                    geo = at.compute_block_geometry(geo.header_bytes + 3 * geo.unit_bytes, C, bps)
+                T = geo.codes_per_block
+                _, si, hist, wt = lane_inputs(rng, B * C, 1, bps)
+                raw = torch.from_numpy(rng.integers(0, 256, B * geo.block_size + skew, dtype=np.uint8))
+                rows = raw.to(cuda)[skew:].view(B, geo.block_size)  # the kernel reads only the data regions
+                check(rows.data_ptr() % 4 == skew, "rows off their boundary")
+                want = fd.decode_lanes_reference(raw[skew:].view(B, geo.block_size), si, hist, wt, bps, geo)
+                got = fd.decode_lanes(rows, si.to(cuda), hist.to(cuda), wt.to(cuda), bps, geo)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                what = f"bps={bps} C={C} blocks of {geo.block_size} bytes, T={T}, B={B}, {skew} bytes off"
+                check(err == 0, f"kernel != plain on block rows at {what}: max |err| {err}")
+                decode_err = max(decode_err, err)
+                print(f"[kernel-vs-plain] aad_decode_lanes on block rows, {what} a 4-byte boundary, data region "
+                      f"{geo.header_bytes} bytes in, {B * C} lanes, rows of {T + 4}: bit-exact")
+        for B, C, T in EDGE_SHAPES:
+            args = lane_inputs(rng, B * C, T, bps)
             want = fd.decode_lanes_reference(*args, bps)
             got = fd.decode_lanes(*(a.to(cuda) for a in args), bps)
             torch.cuda.synchronize()
             err = max_err(got, want)
-            check(err == 0, f"kernel != plain at bps={bps} B={B} C={C} T={T}: max |err| {err}")
+            check(err == 0, f"kernel != plain on codes one a byte at bps={bps} L={B * C} T={T}: max |err| {err}")
             decode_err = max(decode_err, err)
-            print(f"[kernel-vs-plain] aad_decode_lanes bps={bps} codes (B, C, T) = ({B}, {C}, {T}), "
-                  f"{B * C} lanes, rows of {T + 4}: bit-exact")
-    codes, si, hist, wt = lane_inputs(rng, 41, 1, 21, 4)
-    got = fd.decode_lanes(codes.to(cuda)[1:], *(a[1:].contiguous().to(cuda) for a in (si, hist, wt)), 4)
-    err = max_err(got, fd.decode_lanes_reference(codes[1:], si[1:], hist[1:], wt[1:], 4))
-    check(err == 0, f"kernel != plain on codes off a 4-byte boundary: max |err| {err}")
-    print("[kernel-vs-plain] aad_decode_lanes on a (40, 1, 21) view 21 bytes into its storage: bit-exact")
+            print(f"[kernel-vs-plain] aad_decode_lanes on codes one a byte, bps={bps}, (L, T) = ({B * C}, {T}), "
+                  f"rows of {T + 4}: bit-exact")
 
     stamp("4 decode kernel checks")
     # 5. main path at full size
@@ -2014,16 +2118,18 @@ def main() -> int:
 
     stamp("5 decode main path")
     # 6. times at the main path's shapes
+    from aad_tpu_torch.format.framing import pad_to_blocks
+
     dec = at.Decoder.from_header(h, device="cuda")
     payload = torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()).to(cuda)
     lanes = (
-        framed.codes.to(cuda),  # (B, C, T), as framing.block_codes gives them
+        pad_to_blocks(payload, nblocks, geo),  # (B, block_size) rows, as framing.split_blocks gives them
         framed.states.step_index.t().reshape(-1).contiguous().to(cuda),
         framed.states.history.transpose(0, 1).reshape(-1, 4).contiguous().to(cuda),
         framed.states.weight.transpose(0, 1).reshape(-1, 4).contiguous().to(cuda),
-        4,
+        4, geo,
     )
-    B, C, T = lanes[0].shape
+    B, C, T = nblocks, geo.num_channels, geo.codes_per_block
     L = B * C
     got = fd.decode_lanes(*lanes)
     want = fd.decode_lanes_reference(*lanes)
@@ -2044,12 +2150,13 @@ def main() -> int:
         at.decode(data, device="cuda")
     e2e_s = (time.perf_counter() - t0) / DECODE_ITERS
     decode_sass = sass_per_sample(DECODE_SYMBOL)
-    decode_bound, decode_pipe = loop_bound(T * L + L * 36 + L * (T + 4) * 2, L * T, decode_sass)
+    # the bytes: each block row read once, the lane states, the int16 rows written
+    decode_bound, decode_pipe = loop_bound(B * geo.block_size + L * 36 + L * (T + 4) * 2, L * T, decode_sass)
     probe_bound = bound(2 * 256 * 4, 256 * PROBE_OPS_PER_SLOT)
     print(f"[time] card: {card}")
     print(f"[grid] aad_decode_lanes: {grid_line(DECODE_SYMBOL, L, cuda)}")
     print(f"[sass] aad_decode_lanes 4-bit: {sass_line(decode_sass, decode_pipe)}")
-    print(f"[time] aad_decode_lanes {L} lanes x {T} codes, 4-bit, (B, C, T) codes: "
+    print(f"[time] aad_decode_lanes {L} lanes x {T} codes, 4-bit, packed in {B} block rows: "
           f"kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms (two windows), bound {decode_bound[0]:.4f} ms "
           f"({decode_bound[1]}), {decode_bound[0] / min(kernel_ms, kernel_ms_2):.1%} of the bound; "
           f"plain torch on the card {plain_ms:.4f} ms ({card})")
@@ -2073,9 +2180,12 @@ def main() -> int:
          "max_abs_err": probe_err, "ms": probe_ms, "plain_ms": probe_plain_ms,
          "bound_ms": probe_bound[0], "bound_by": probe_bound[1], "library_ms": None},
     ]
-    copies = profile("device-resident fused decode, bench stream", lambda: dec.decode_payload_ondevice(payload),
-                     10, time_major=(T, L))
-    check(copies == 0, f"the fused decode still copies the codes time-major ({copies} a call)")
+    prof = profile("device-resident fused decode, bench stream", lambda: dec.decode_payload_ondevice(payload),
+                   10, time_major=(T, L), codes=(L * T, B * geo.data_bytes))
+    check(prof["copies"] == 0, f"the fused decode still copies the codes time-major ({prof['copies']} a call)")
+    check(prof["code_ops"] == 0, f"the fused decode still unpacks the codes ({prof['code_ops']} operations a call)")
+    print(f"[profile]   resident fused decode: {prof['device_ms']:.4f} ms of device time a call, beside "
+          f"{BYTE_CODES_DECODE_MS:.4f} ms when the codes were unpacked by torch ops before kernel 1 ({card})")
     del framed, lanes, payload, dec
 
     stamp("6 decode times")

@@ -14,6 +14,8 @@ import torch
 
 import jax.numpy as jnp
 
+from aad_tpu.format.geometry import compute_block_geometry as jgeometry
+from aad_tpu.ops import bitpack as jb
 from aad_tpu.ops import decode as jd
 from aad_tpu.ops import transitions as jt
 
@@ -133,21 +135,33 @@ def test_plain_stepsize_probe_has_no_corrections():
     assert fused_decode.stepsize_corrections("cpu") == ()
 
 
-def _block_lanes(codes, si, wt, hi):
-    """(B, C, ...) block-batch arrays -> the kernel's channel-major lanes."""
+def _block_rows(codes, si, wt, hi, bps, seed):
+    """(B, C, ...) block-batch arrays -> the kernel's inputs: (B, block_size)
+    block rows, the codes packed in their data regions by aad_tpu's
+    pack_codes behind random header bytes (the kernel reads the states from
+    its other inputs), and the channel-major lane states; with the port's
+    geometry of those rows."""
     B, C, T = codes.shape
+    geo = jgeometry(1024, C, bps)
+    assert T % geo.samples_per_unit == 0
+    geo = jgeometry(geo.header_bytes + T // geo.samples_per_unit * geo.unit_bytes, C, bps)
+    head = np.random.default_rng(seed).integers(0, 256, (B, geo.header_bytes), dtype=np.uint8)
+    rows = np.concatenate([head, np.asarray(jb.pack_codes(codes, geo))], axis=1)
     lanes = lambda a: torch.from_numpy(np.ascontiguousarray(a.swapaxes(0, 1).reshape(C * B, *a.shape[2:])))
-    return torch.from_numpy(codes), lanes(si), lanes(hi), lanes(wt)
+    tgeo = aad_tpu_torch.compute_block_geometry(geo.block_size, C, bps)
+    return (torch.from_numpy(rows), lanes(si), lanes(hi), lanes(wt)), tgeo
 
 
 @pytest.mark.parametrize("engine", ["scan", "fused"])
 @pytest.mark.parametrize("C", [1, 2])
 @pytest.mark.parametrize("bps", [2, 3, 4])
 def test_decode_lanes_block_order_matches_jax(bps, C, engine):
-    """decode_lanes and decode_lanes_reference take framing.block_codes' (B, C, T)
-    codes and return channel-major rows (lane c * B + b): equal to aad_tpu's
-    scan engine and to its fused Pallas kernel in interpret mode."""
-    B, T = 1024 // C, 21  # one 1024-lane tile; T + 4 odd
+    """decode_lanes and decode_lanes_reference take the (B, block_size) block
+    rows of framing.split_blocks, read each lane's codes packed from its
+    block's data region, and return channel-major rows (lane c * B + b):
+    equal to aad_tpu's scan engine and to its fused Pallas kernel in
+    interpret mode on the unpacked codes."""
+    B, T = 1024 // C, 24  # one 1024-lane tile; whole units at every bps
     codes, si, wt, hi = _lanes(80 + 2 * bps + C, B * C, T, bps)
     codes, si, wt, hi = codes.reshape(B, C, T), si.reshape(B, C), wt.reshape(B, C, 4), hi.reshape(B, C, 4)
     want = np.asarray(jd.decode_blocks(
@@ -155,42 +169,63 @@ def test_decode_lanes_block_order_matches_jax(bps, C, engine):
         bits_per_sample=bps, engine=engine,
     ))
     want = want.swapaxes(0, 1).reshape(C * B, T + 4)
-    args = _block_lanes(codes, si, wt, hi)
+    args, geo = _block_rows(codes, si, wt, hi, bps, bps)
+    assert geo.bits_per_sample == bps and geo.codes_per_block == T
     before = dict(fused_decode.launches)
-    got = fused_decode.decode_lanes(*args, bps)
+    got = fused_decode.decode_lanes(*args, bps, geo)
     assert fused_decode.launches == before
     assert got.dtype == torch.int16 and got.shape == (C * B, T + 4)
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(fused_decode.decode_lanes_reference(*args, bps).numpy(), want)
+    np.testing.assert_array_equal(fused_decode.decode_lanes_reference(*args, bps, geo).numpy(), want)
 
 
 @pytest.mark.parametrize("bps", [2, 3, 4])
 def test_cpu_wrapper_runs_plain_version_without_launching(bps):
-    codes, si, wt, hi = _lanes(60 + bps, 37 * 2, 21, bps)
-    codes, si, wt, hi = codes.reshape(37, 2, 21), si.reshape(37, 2), wt.reshape(37, 2, 4), hi.reshape(37, 2, 4)
+    """The (L, T) codes one a byte of the codes-level API (T + 4 odd)."""
+    codes, si, wt, hi = _lanes(60 + bps, 74, 21, bps)
     before = dict(fused_decode.launches)
-    got = fused_decode.decode_lanes(*_block_lanes(codes, si, wt, hi), bps)
+    got = fused_decode.decode_lanes(*_t(codes, si, hi, wt), bps)
     assert fused_decode.launches == before
     assert got.dtype == torch.int16 and got.shape == (74, 25)
-    want = td.decode_blocks(*_t(codes, si, wt, hi), bits_per_sample=bps)  # (B, C, T + 4)
-    np.testing.assert_array_equal(got.numpy(), want.transpose(0, 1).reshape(74, 25).numpy())
+    want = td.decode_blocks(*_t(codes, si, wt, hi), bits_per_sample=bps)  # (L, T + 4)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    codes, si, wt, hi = _lanes(70, 8, 5, 4)
-    c, s, h, w = _block_lanes(codes.reshape(4, 2, 5), si.reshape(4, 2), wt.reshape(4, 2, 4), hi.reshape(4, 2, 4))
+    codes, si, wt, hi = _lanes(70, 8, 8, 4)
+    (c, s, h, w), geo = _block_rows(codes.reshape(4, 2, 8), si.reshape(4, 2), wt.reshape(4, 2, 4),
+                                    hi.reshape(4, 2, 4), 4, 0)
+    assert fused_decode.decode_lanes(c, s, h, w, 4, geo).shape == (8, 12)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c.to(torch.int32), s, h, w, 4)
+        fused_decode.decode_lanes(c.to(torch.int32), s, h, w, 4, geo)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c, s[:-1], h, w, 4)
+        fused_decode.decode_lanes(c, s[:-1], h, w, 4, geo)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c, s, h.to(torch.int64), w, 4)
+        fused_decode.decode_lanes(c, s, h.to(torch.int64), w, 4, geo)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c, s, h, w, 5)
+        fused_decode.decode_lanes(c, s, h, w, 5, geo)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c.reshape(8, 5), s, h, w, 4)  # time-major or lane rows: not (B, C, T)
+        fused_decode.decode_lanes(c, s, h, w, 2, geo)  # the geometry's bit depth is 4
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c.to("meta"), s.to("meta"), h.to("meta"), w.to("meta"), 4)
+        fused_decode.decode_lanes(c[:, 1:], s, h, w, 4, geo)  # rows narrower than a block
+    with pytest.raises(ValueError):
+        fused_decode.decode_lanes(c.reshape(4, 2, -1), s, h, w, 4)  # not rows
+    with pytest.raises(ValueError):
+        fused_decode.decode_lanes(c.to("meta"), s.to("meta"), h.to("meta"), w.to("meta"), 4, geo)
+
+
+def test_decode_sample_matches_jax():
+    """transitions.decode_sample, one step of every lane, as aad_tpu's."""
+    for bps in (2, 3, 4):
+        codes, si, wt, hi = _lanes(90 + bps, 257, 3, bps)
+        jstate = jt.CodecState(jnp.asarray(hi), jnp.asarray(wt), jnp.asarray(np.minimum(si, 4080)))
+        state = tt.CodecState(*_t(hi, wt, np.minimum(si, 4080)))
+        for t in range(codes.shape[1]):
+            jstate, jsample = jt.decode_sample(jstate, jnp.asarray(codes[:, t]), bps)
+            state, sample = tt.decode_sample(state, torch.from_numpy(codes[:, t]), bps)
+            np.testing.assert_array_equal(sample.numpy(), np.asarray(jsample))
+            for g, w in zip(state, jstate):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

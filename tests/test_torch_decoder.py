@@ -59,11 +59,19 @@ def encoded_stream(kind, nch, bps, ms, max_block_size=256, n=2500):
 
 
 def assert_same_decode(data, strict=True):
+    """decode(device="cpu"), whose kernel-1 plain version reads the block
+    rows' packed codes, equals aad_tpu's scan engine; a whole stream also
+    decodes so through the codes one a byte (Decoder.frame), the kernel's
+    input before it read them packed."""
     h_want, want = aad_tpu.decode(data, engine="scan", strict=strict)
     h_got, got = aad_tpu_torch.decode(data, device="cpu", strict=strict)
     assert vars(h_got) == vars(h_want)
     assert got.dtype == np.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+    if strict:
+        dec = aad_tpu_torch.Decoder.from_header(h_got, device="cpu")
+        framed = dec.frame(np.frombuffer(data, np.uint8)[aad_tpu_torch.FILE_HEADER_SIZE:])
+        np.testing.assert_array_equal(dec.decode_framed(framed).numpy(), want)
     return got
 
 
@@ -100,7 +108,8 @@ def test_truncated_stream_strict_raises_lenient_matches(cut):
 
 
 def test_decoder_api_matches():
-    """Decoder.frame / decode_framed / decode_payload_ondevice on the CPU."""
+    """Decoder.frame / decode_framed / decode_payload_ondevice / decode_payload
+    on the CPU."""
     data = random_code_stream(5, 2, 4, False, 256, 1000)
     header = aad_tpu_torch.decode_header(data)
     payload = np.frombuffer(data, np.uint8)[aad_tpu_torch.FILE_HEADER_SIZE:]
@@ -117,6 +126,11 @@ def test_decoder_api_matches():
     ondevice = dec.decode_payload_ondevice(torch.from_numpy(payload.copy()))
     assert ondevice.dtype == torch.int16 and ondevice.device.type == "cpu"
     np.testing.assert_array_equal(ondevice.numpy(), want)
+    got = dec.decode_payload(payload)
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jdec.decode_payload(payload)))
+    with pytest.raises(aad_tpu_torch.InsufficientDataError):
+        dec.decode_payload(payload[:-1])
     assert fused_decode.launches[fused_decode.DECODE_KERNEL] == 0
     with pytest.raises(aad_tpu_torch.InvalidArgumentError):
         dec.decode_payload_ondevice(torch.from_numpy(payload.astype(np.int32)))

@@ -388,6 +388,39 @@ def test_jax_engines_disagree_on_forged_carries():
     np.testing.assert_array_equal(differs, [False, True, True, False])
 
 
+# --- kernel 3's packed codes ---------------------------------------------------
+
+
+@pytest.mark.parametrize("nch,bps,ms,trials", [
+    (1, 2, False, 2), (2, 2, False, 1), (1, 3, False, 2), (2, 3, True, 2), (1, 4, False, 0), (2, 4, True, 2),
+])
+def test_packed_plain_version_matches_scan_bytes(nch, bps, ms, trials):
+    """encode_stream(..., pack=geo) on the CPU, kernel 3's plain version with
+    its codes packed as the wire holds them, gives the data regions of
+    aad_tpu.encode(engine="scan")'s blocks: with the block headers, its
+    payload byte for byte. A ragged last block (at 3 bits a last unit that
+    holds padding codes)."""
+    import aad_tpu
+
+    import aad_tpu_torch
+    from aad_tpu_torch.codec.encoder import _block_bytes, _pad_to_blocks, payload_size
+
+    cfg = aad_tpu_torch.EncodeConfig(nch, 16000, bps, 128, int(ms), trials)
+    geo = cfg.geometry()
+    n = 3 * geo.num_samples_per_block - 5
+    pcm = np.random.default_rng(40 + 10 * nch + bps).integers(-20000, 20000, (nch, n)).astype(np.int16)
+    want = aad_tpu.encode(pcm, aad_tpu.EncodeConfig(nch, 16000, bps, 128, int(ms), trials), engine="scan")
+    blocks, valid = _pad_to_blocks(torch.from_numpy(pcm), geo, 0, 3)
+    if ms:
+        blocks = te.lr_to_ms(blocks).to(torch.int16)
+    before = dict(fused_encode.launches)
+    headers, data, carry = fused_encode.encode_stream(blocks, valid, bps, trials, need_carry=False, pack=geo)
+    assert fused_encode.launches == before and carry is None
+    assert data.dtype == torch.uint8 and data.shape == (3, geo.data_bytes)
+    payload = _block_bytes(headers, data, geo).reshape(-1)[: payload_size(geo, n)]
+    assert payload.numpy().tobytes() == want[aad_tpu_torch.FILE_HEADER_SIZE:]
+
+
 # --- the wrappers on the CPU -------------------------------------------------
 
 
@@ -421,6 +454,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fused_encode.encode_stream(blocks, valid, 5, 2)
     with pytest.raises(ValueError):
         fused_encode.encode_stream(blocks.to("meta"), valid, 4, 2)
+    from aad_tpu_torch.format.geometry import compute_block_geometry
+
+    stereo = compute_block_geometry(36 + 8, 2, 4)  # 20 samples a block, 2 channels
+    with pytest.raises(ValueError):
+        fused_encode.encode_stream(blocks, valid, 4, 2, pack=stereo)  # 3 channels
+    with pytest.raises(ValueError):
+        fused_encode.encode_stream(blocks[:, :2], valid, 2, 2, pack=stereo)  # 2 bits
     st = CodecState.zeros((3,))
     samples = torch.zeros((16, 3), dtype=torch.int16)
     with pytest.raises(ValueError):

@@ -132,6 +132,19 @@ def test_framing_matches(bps, nch, block):
         tf.split_blocks(torch.from_numpy(want_payload[:-1]), _header(aad_tpu_torch, tgeo, ns), tgeo)
 
 
+@pytest.mark.parametrize("bps,nch,block", [(4, 2, 1024), (3, 1, 250), (2, 2, 96)])
+def test_block_sample_counts_and_payload_offset_match(bps, nch, block):
+    geo = jg.compute_block_geometry(block, nch, bps)
+    tgeo = tg.compute_block_geometry(block, nch, bps)
+    nspb = geo.num_samples_per_block
+    for ns in (1, nspb - 1, nspb, 3 * nspb, 7 * nspb + 5):
+        want = jf.block_sample_counts(_header(aad_tpu, geo, ns))
+        got = tf.block_sample_counts(_header(aad_tpu_torch, tgeo, ns))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert tf.payload_offset() == jf.payload_offset() == aad_tpu_torch.FILE_HEADER_SIZE
+
+
 @pytest.mark.parametrize("nch", [1, 2])
 def test_parse_block_headers_clamps_wire_indices(nch):
     """Raw header bytes with 12-bit indices 4081-4095 parse as aad_tpu does."""

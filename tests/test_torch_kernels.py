@@ -47,17 +47,32 @@ def _int32_wide(rng, L):
 
 
 def _lanes(seed, B, C, T, bps):
-    """(B, C, T) codes and channel-major lane states: step indices 0, 4080
-    and 4081-4095 (the parse clamp), histories and weights over int32."""
+    """(B * C, T) codes one a byte and channel-major lane states: step
+    indices 0, 4080 and 4081-4095 (the parse clamp), histories and weights
+    over int32."""
     rng = np.random.default_rng(seed)
     L = B * C
-    codes = rng.integers(0, 2**bps, (B, C, T), dtype=np.uint8)
+    codes = rng.integers(0, 2**bps, (L, T), dtype=np.uint8)
     si = rng.integers(0, 4096, (L,)).astype(np.int32)
     si[: min(17, L)] = [0, 4080, *range(4081, 4096)][: min(17, L)]
     hi = _int32_wide(rng, L)
     wt = _int32_wide(rng, L)
     wt[1::4] = rng.integers(-20000, 20000, wt[1::4].shape)
     return [torch.from_numpy(a) for a in (codes, si, hi, wt)]
+
+
+def _rows_geometry(C, T, bps):
+    """The geometry of blocks of C channels with at least T codes, whole units."""
+    geo = compute_block_geometry(1024, C, bps)
+    units = -(-T // geo.samples_per_unit)
+    return compute_block_geometry(geo.header_bytes + units * geo.unit_bytes, C, bps)
+
+
+def _random_rows(seed, B, geo, skew=0, device="cpu"):
+    """(B, block_size) random bytes on ``device`` (the kernel reads only the
+    data regions), as a view ``skew`` bytes past a 4-byte boundary."""
+    raw = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, B * geo.block_size + skew, dtype=np.uint8))
+    return raw.to(device)[skew:].view(B, geo.block_size)
 
 
 def test_stepsize_probe_equals_table(cuda):
@@ -70,23 +85,38 @@ def test_stepsize_probe_equals_table(cuda):
 @pytest.mark.parametrize("bps", [2, 3, 4])
 @pytest.mark.parametrize("B,C,T", [(500, 2, 300), (257, 1, 988), *EDGE_SHAPES])
 def test_decode_lanes_kernel_matches_plain(cuda, bps, B, C, T):
-    args = _lanes(bps * 7 + B * C + T, B, C, T, bps)
-    want = fused_decode.decode_lanes_reference(*args, bps)
-    before = fused_decode.launches[fused_decode.DECODE_KERNEL]
-    got = fused_decode.decode_lanes(*(a.to(cuda) for a in args), bps)
-    torch.cuda.synchronize()
-    assert fused_decode.launches[fused_decode.DECODE_KERNEL] == before + 1
-    assert got.dtype == torch.int16 and got.shape == (B * C, T + 4)
-    assert torch.equal(got.cpu(), want)
+    """Block rows, the codes packed in their data regions (B blocks of C
+    channels, the fewest whole units that hold T codes), and (B * C, T)
+    codes one a byte: one launch each, equal to the plain version."""
+    codes, si, hi, wt = _lanes(bps * 7 + B * C + T, B, C, T, bps)
+    geo = _rows_geometry(C, T, bps)
+    rows = _random_rows(bps + B + T, B, geo)
+    for lanes, g in ((rows, geo), (codes, None)):
+        n = geo.codes_per_block if g is not None else T
+        want = fused_decode.decode_lanes_reference(lanes, si, hi, wt, bps, g)
+        before = fused_decode.launches[fused_decode.DECODE_KERNEL]
+        got = fused_decode.decode_lanes(lanes.to(cuda), si.to(cuda), hi.to(cuda), wt.to(cuda), bps, g)
+        torch.cuda.synchronize()
+        assert fused_decode.launches[fused_decode.DECODE_KERNEL] == before + 1
+        assert got.dtype == torch.int16 and got.shape == (B * C, n + 4)
+        assert torch.equal(got.cpu(), want)
 
 
-def test_decode_lanes_kernel_takes_unaligned_codes(cuda):
-    """A (B, C, T) view whose first byte is off a 4-byte boundary."""
-    codes, si, hi, wt = _lanes(5, 41, 1, 21, 4)
-    view = codes.to(cuda)[1:]  # starts 21 bytes in
-    args = (si[1:].contiguous(), hi[1:].contiguous(), wt[1:].contiguous())
-    want = fused_decode.decode_lanes_reference(codes[1:], *args, 4)
-    assert torch.equal(fused_decode.decode_lanes(view, *(a.to(cuda) for a in args), 4).cpu(), want)
+@pytest.mark.parametrize("skew", [1, 2, 3])
+@pytest.mark.parametrize("C", [1, 2])
+def test_decode_lanes_kernel_takes_unaligned_codes(cuda, skew, C):
+    """Block rows whose first byte is off a 4-byte boundary, at 4 bits: a mono
+    data region starts 18 bytes into its block, off a boundary itself, and a
+    3-bit mono block is 1,023 bytes, so block after block lies off one."""
+    for bps in (4, 3):
+        geo = compute_block_geometry(1024, C, bps)
+        B = 67
+        _, si, hi, wt = _lanes(5 + skew, B, C, 1, bps)
+        rows = _random_rows(skew, B, geo, skew, cuda)
+        assert rows.data_ptr() % 4 == skew
+        want = fused_decode.decode_lanes_reference(rows.cpu(), si, hi, wt, bps, geo)
+        got = fused_decode.decode_lanes(rows, si.to(cuda), hi.to(cuda), wt.to(cuda), bps, geo)
+        assert torch.equal(got.cpu(), want)
 
 
 def _stream(nch, ms, bps):
@@ -276,6 +306,41 @@ def test_encode_stream_kernel_matches_plain(cuda, bps, trials, warm, blocks_befo
     assert _same(tuple(got[2]), tuple(want[2])) if emit else _same(tuple(got[2][0]), tuple(want[2][0]))
 
 
+# (channels, trials, warm_on_prev, blocks_before, rows, max block size):
+# the serial schedule at trials 0 and without the warm-up (its emit staged
+# per warp); the paired one staged (333 and 334 lanes), not staged (4,098
+# lanes, past the gate), and at a full block's length, the sequential path's
+# 2 lanes.
+PACKED_CASES = [
+    (1, 0, True, 0, 333, 64), (2, 2, False, 0, 167, 96), (2, 1, True, 1, 167, 96), (1, 2, True, 3, 333, 64),
+    (2, 2, True, 2, 2049, 64), (2, 2, True, 1, 1, 1024), (1, 3, True, 0, 2, 1024),
+]
+
+
+@pytest.mark.parametrize("bps", [2, 3, 4])
+@pytest.mark.parametrize("C,trials,warm,blocks_before,rows,block", PACKED_CASES)
+def test_encode_stream_kernel_packs_like_plain(cuda, bps, C, trials, warm, blocks_before, rows, block):
+    """encode_stream(..., pack=geo): each block's data region, the channels
+    of a row interleaved unit by unit, equal to the plain version's codes
+    packed by bitpack.pack_codes; valid counts 0-3, ragged (at 3 bits a
+    last unit partly past them) and full, and forged carries."""
+    geo = compute_block_geometry(block, C, bps)
+    nspb = geo.num_samples_per_block
+    blocks, valid, (state, prev) = _encode_lanes(bps * 13 + C + rows, 3, rows * C, nspb)
+    blocks, valid = blocks.reshape(3, rows, C, nspb), valid.reshape(3, rows, C)
+    carry = (state.map(lambda a: a.reshape(rows, C, *a.shape[1:])), prev.reshape(rows, C, nspb))
+    kw = dict(carry=carry, blocks_before=blocks_before, warm_on_prev=warm, need_carry=False, pack=geo)
+    want = fused_encode.encode_stream_reference(blocks, valid, bps, trials, **kw)
+    before = dict(fused_encode.launches), dict(encode_pass.launches)
+    kw["carry"] = (carry[0].to(cuda), carry[1].to(cuda))
+    got = fused_encode.encode_stream(blocks.to(cuda), valid.to(cuda), bps, trials, **kw)
+    torch.cuda.synchronize()
+    assert fused_encode.launches[fused_encode.STREAM_KERNEL] == before[0][fused_encode.STREAM_KERNEL] + 1
+    assert encode_pass.launches == before[1]
+    assert got[1].dtype == torch.uint8 and got[1].shape == (3, rows, geo.data_bytes)
+    assert _same(tuple(got[0]), tuple(want[0])) and _same(got[1], want[1])
+
+
 def test_encode_stream_serial_warm_up_matches_plain(cuda):
     """A block whose speculative codes do not fit a CTA (more than 47,104
     slots) takes the serial schedule with the warm-up; its valid counts are
@@ -343,6 +408,74 @@ def test_cuda_encode_batch_matches_cpu(cuda, monkeypatch, streams, chunked):
     assert encode_pass.launches == {encode_pass.PASS_KERNEL: chunks - 1}
     assert got == aad_tpu_torch.encode_batch(pile, cfg, device="cpu")
     assert got[-1] == aad_tpu_torch.encode(pile[-1], cfg, device="cuda")
+
+
+def test_no_unpack_or_pack_on_the_card(cuda, monkeypatch):
+    """With the fused engine on the card, no entry point that starts or ends
+    in .aad bytes runs bitpack.unpack_codes or pack_codes: kernel 1 reads
+    the codes packed and kernel 3 writes them so. Each output equals
+    device="cpu" (computed first: the plain versions unpack and pack)."""
+    from aad_tpu_torch.codec import encoder
+    from aad_tpu_torch.ops import bitpack
+
+    streams = [_stream(2, False, 4), _stream(2, True, 4), _stream(1, False, 3)]
+    cfg = aad_tpu_torch.EncodeConfig(2, 16000, 4, 96, 1, 2)
+    mono = aad_tpu_torch.EncodeConfig(1, 16000, 3, 128, 0, 1)
+    rng = np.random.default_rng(11)
+    pcm = rng.integers(-20000, 20000, (2, 10 * cfg.geometry().num_samples_per_block - 7)).astype(np.int16)
+    pcm1 = rng.integers(-20000, 20000, (1, 5 * mono.geometry().num_samples_per_block - 3)).astype(np.int16)
+    pile = [pcm[:, :n] for n in (pcm.shape[1], 500, 77)]
+
+    def decode_streamed(data, device):
+        sd = aad_tpu_torch.StreamingDecoder(device=device, engine="fused")
+        return np.concatenate([sd.push(data[i : i + 3001]) for i in range(0, len(data), 3001)], axis=1)
+
+    def encode_streamed(x, c, device):
+        se = aad_tpu_torch.StreamingEncoder(c, device=device)
+        body = b"".join(se.push(x[:, i : i + 700]) for i in range(0, x.shape[1], 700)) + se.finish()
+        return se.header() + body
+
+    def run(device):
+        out = []
+        for data in streams:
+            h = aad_tpu_torch.decode_header(data)
+            payload = np.frombuffer(data, np.uint8)[aad_tpu_torch.FILE_HEADER_SIZE:]
+            dec = aad_tpu_torch.Decoder.from_header(h, device=device, engine="fused")
+            out += [aad_tpu_torch.decode(data, device=device, engine="fused")[1],
+                    aad_tpu_torch.decode(data[:-1500], device=device, engine="fused", strict=False)[1],
+                    dec.decode_payload_ondevice(payload).cpu().numpy(),
+                    dec.decode_payload(payload).cpu().numpy(),
+                    dec.decode_block_range(payload, 3, 5).cpu().numpy(),
+                    dec.decode_time_range(payload, 0.05, 0.2).cpu().numpy(),
+                    decode_streamed(data, device)]
+        out += [pcm for _, pcm in aad_tpu_torch.decode_batch(streams, device=device, engine="fused")]
+        for c, x in ((cfg, pcm), (mono, pcm1)):
+            out += [aad_tpu_torch.encode(x, c, device=device),
+                    aad_tpu_torch.encode(x, c, device=device, parallel_blocks=True),
+                    aad_tpu_torch.encode(x, c, device=device, parallel_blocks=True, parallel_chunk_blocks=3,
+                                         parallel_warm_passes=1),
+                    encode_streamed(x, c, device)]
+        enc = aad_tpu_torch.Encoder.from_config(cfg, device=device)
+        out += [enc.encode_payload_ondevice(torch.from_numpy(pcm).to(device)).cpu().numpy().tobytes()]
+        out += aad_tpu_torch.encode_batch(pile, cfg, device=device)
+        return out
+
+    monkeypatch.setattr(encoder, "_OVERLAP_MIN_BLOCKS", 3)  # the sequential encode in chunks of 2 blocks
+    monkeypatch.setattr(encoder, "_OVERLAP_CHUNK_BLOCKS", 2)
+    want = run("cpu")
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a code tensor of one byte a code was made on the card")
+
+    monkeypatch.setattr(bitpack, "unpack_codes", forbidden)
+    monkeypatch.setattr(bitpack, "pack_codes", forbidden)
+    got = run("cuda")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, bytes):
+            assert g == w
+        else:
+            np.testing.assert_array_equal(g, w)
 
 
 def test_self_check_on_the_card(cuda):

@@ -209,6 +209,14 @@ def test_time_encode_needs_a_card(monkeypatch):
         time_encode.main(["--seconds", "1"])
 
 
+def test_time_lanes_needs_a_card(monkeypatch):
+    from aad_tpu_torch.utils import time_lanes
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        time_lanes.main(["--lanes", "2"])
+
+
 def test_profiling_needs_a_card(monkeypatch, tmp_path):
     calls = []
     with pytest.raises(RuntimeError, match="CUDA"):
