@@ -9,9 +9,12 @@ takes seconds.
 The library lands in ``build/aad_tpu_torch/<hash>/libaad_kernels.so`` beside
 the package, keyed by a hash of the sources and flags, under a file lock so
 that concurrent processes build it once (:func:`build_locked`, which also
-builds the native host engine, ``aad_tpu_torch.native``). A missing ``nvcc``
-or a failed build raises :class:`KernelBuildError`: nothing falls back to the
-plain torch versions.
+builds the native host engine, ``aad_tpu_torch.native``). The decode probes
+(``aad_tpu_torch.probes``) build their own library the same way, from their
+own source directory (:func:`build` with ``csrc`` and ``lib_name``), so that
+the codec library's sources and hash stay as they are. A missing ``nvcc`` or a
+failed build raises :class:`KernelBuildError`: nothing falls back to the plain
+torch versions.
 """
 
 from __future__ import annotations
@@ -75,8 +78,8 @@ def find_nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: pathlib.Path = CSRC) -> list[pathlib.Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def source_hash(flags=NVCC_FLAGS, sources=None) -> str:
@@ -135,20 +138,25 @@ def build_locked(out_dir: pathlib.Path, lib_name: str, stages, error: type[Excep
     return lib
 
 
-def build(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
-    """Compile the kernels if this source hash has no library yet; return its path.
+def build(build_dir: pathlib.Path = BUILD_DIR, csrc: pathlib.Path = CSRC, lib_name: str = LIB_NAME,
+          headers: tuple[pathlib.Path, ...] = ()) -> pathlib.Path:
+    """Compile the ``.cu`` sources of ``csrc`` into ``lib_name`` if this
+    source hash has no library yet; return its path. By default: the codec
+    kernels.
 
-    One nvcc a source, all started together, then one link. The compiler's
-    output (including ``-Xptxas -v``: registers, shared memory and spills per
-    kernel) is kept in ``build.log`` beside the library.
+    One nvcc a source, all started together, then one link. ``headers``
+    are files outside ``csrc`` that the sources include; they join the hash.
+    The compiler's output (including ``-Xptxas -v``: registers, shared
+    memory and spills per kernel) is kept in ``build.log`` beside the
+    library.
     """
-    out_dir = build_dir / source_hash()
-    if (out_dir / LIB_NAME).is_file():
-        return out_dir / LIB_NAME
+    out_dir = build_dir / source_hash(sources=_sources(csrc) + sorted(headers))
+    if (out_dir / lib_name).is_file():
+        return out_dir / lib_name
     nvcc = find_nvcc()
 
     def stages(tmp: pathlib.Path, tag: int) -> list[list[list[str]]]:
-        srcs = sorted(CSRC.glob("*.cu"))
+        srcs = sorted(csrc.glob("*.cu"))
         objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
         return [
             [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)],
@@ -156,24 +164,30 @@ def build(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
               *(str(obj) for obj in objs)]],
         ]
 
-    return build_locked(out_dir, LIB_NAME, stages, KernelBuildError)
+    return build_locked(out_dir, lib_name, stages, KernelBuildError)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process, argtypes set."""
-    path = build()
+def load(path: pathlib.Path, signatures: dict) -> ctypes.CDLL:
+    """Load a built kernel library and set the argtypes of its entry points
+    (name -> argtypes, each returning a cudaError_t as int) and of its
+    ``aad_error_string``."""
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise KernelBuildError(f"cannot load {path}: {e}") from e
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     lib.aad_error_string.argtypes = [ctypes.c_int]
     lib.aad_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process, argtypes set."""
+    return load(build(), _SIGNATURES)
 
 
 def launch_target(device) -> tuple[int, int]:

@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ..codec.device import resolve_device
 from ..constants import FILTER_ORDER, STEPSIZE_TABLE_SIZE, TABLES_FLOAT_DIGITS
 from ..format.geometry import BlockGeometry
 from ..tables import STEPSIZE_TABLE
@@ -187,16 +188,16 @@ def _probe_corrections(device: torch.device) -> tuple[tuple[int, int], ...]:
     return tuple((int(s), int(want[s] - got[s])) for s in np.nonzero(got != want)[0])
 
 
-def stepsize_corrections(device="cpu") -> tuple[tuple[int, int], ...]:
+def stepsize_corrections(device="cuda") -> tuple[tuple[int, int], ...]:
     """(slot, delta) pairs where the kernel's step sizes differ from the table.
 
-    The probe runs once per process and device, at the first CUDA decode.
+    The probe runs once per process and device, at the first CUDA decode; by
+    default on the card, as ``aad_tpu``'s probes its default backend, and
+    without a card that raises (``device="cpu"`` asks the plain version).
     The kernel reads the exact table, so any correction means a broken
     table upload: that raises. Returns ``()``.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = resolve_device(device)
     corrections = _probe_corrections(device)
     if corrections:
         raise RuntimeError(f"step-size table on {device} differs from STEPSIZE_TABLE: {corrections}")

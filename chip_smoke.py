@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharding   # phases 1, 2 and 16 only, for a host with several cards
+    python3 chip_smoke.py --probes     # phases 1, 2 and 17 only: the decode probes
 
 Run from the repository root on a machine with a CUDA card (written for an
 H100), nvcc and PyTorch. It imports nothing of JAX or ``aad_tpu``. Phases, in
@@ -11,7 +12,8 @@ failure exits non-zero:
 
 1. device: name, power limit and toolchain;
 2. build: the CUDA kernels, from ``aad_tpu_torch/csrc``, and beside them
-   the native host engine, from ``aad_tpu_torch/native`` (timed);
+   the native host engine, from ``aad_tpu_torch/native``, and the decode
+   probes' kernels, from ``aad_tpu_torch/probes/csrc`` (timed);
 3. probe: the step-size probe kernel reads exactly ``STEPSIZE_TABLE``; and
    the launch floor, a one-element torch op timed by CUDA events over 1,000
    launches, against which phase 6 holds the probe;
@@ -141,7 +143,18 @@ failure exits non-zero:
    unsharded ``encode_blocks_parallel`` and, assembled, the bytes of
    ``encode(..., parallel_blocks=True)``; for each, the launches (one a
    non-empty shard), the host syncs inside a call under ``torch.profiler``
-   (none allowed) and the time beside the unsharded call's, in turns.
+   (none allowed) and the time beside the unsharded call's, in turns;
+17. the decode probes (``aad_tpu_torch.probes``, kernels 6-8, on no main
+   path): each kernel and every built variant against its plain version,
+   bit for bit, at the probes' full sizes (the transpose's (512, 64, 8,
+   128) int32; phase A's five forms at 28,672 lanes x 256 words; the nine
+   layout, R and ablation instances at 65,536 lanes x 128 words; the plain
+   versions on the card, timed) and at odd sizes (lanes not a multiple of
+   the CTA, words not a multiple of the chunk or the row tile, the
+   transpose's 4-byte path); then each module's ``main()``, which prints
+   its times beside its bytes bound and the card; each record's bound also
+   from its compiled loop by pipe (``cuobjdump -sass`` of the probes'
+   library).
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -251,21 +264,21 @@ def bound(num_bytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> t
 
 
 @functools.cache
-def sass_text() -> str:
-    """``cuobjdump -sass`` of the built library."""
+def sass_text(lib=None) -> str:
+    """``cuobjdump -sass`` of a built library, by default the codec kernels'."""
     from aad_tpu_torch.ops import _build
 
     cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
-    return subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+    return subprocess.run([str(cuobjdump), "-sass", str(lib or _build.build())],
                           capture_output=True, text=True, check=True).stdout
 
 
-def sass_loop(symbol: str, marker: str, without: tuple[str, ...] = ()) -> list[tuple[str, str, str]]:
+def sass_loop(symbol: str, marker: str, without: tuple[str, ...] = (), lib=None) -> list[tuple[str, str, str]]:
     """The instructions (guard, opcode, operands) of the longest innermost
     loop (a backward branch) that holds an instruction of opcode ``marker``
     and none of the opcodes ``without``, in the kernel whose mangled name
-    contains ``symbol``."""
-    funcs = [f for f in sass_text().split("Function : ")[1:] if symbol in f.split("\n", 1)[0]]
+    contains ``symbol`` (in library ``lib``, by default the codec kernels')."""
+    funcs = [f for f in sass_text(lib).split("Function : ")[1:] if symbol in f.split("\n", 1)[0]]
     check(len(funcs) == 1, f"{len(funcs)} functions named like {symbol} in the SASS")
     insns = [(int(m[1], 16), (m[2] or "").strip(), m[3], m[4]) for m in SASS_INSN.finditer(funcs[0])]
     loops = [(int(args.split()[-1], 16), addr) for addr, _, op, args in insns
@@ -985,6 +998,19 @@ def all_launches() -> dict:
     from aad_tpu_torch.ops import encode_pass as ep, fused_decode as fd, fused_encode as fe, lms
 
     return {**fd.launches, **lms.launches, **fe.launches, **ep.launches}
+
+
+def reset_probe_launches() -> None:
+    from aad_tpu_torch.probes import decode_layout, phase_a_decode, transpose
+
+    for mod in (transpose, phase_a_decode, decode_layout):
+        mod.launches.update(dict.fromkeys(mod.launches, 0))
+
+
+def probe_launches() -> dict:
+    from aad_tpu_torch.probes import decode_layout, phase_a_decode, transpose
+
+    return {**transpose.launches, **phase_a_decode.launches, **decode_layout.launches}
 
 
 def lms_kernel_checks(cuda) -> int:
@@ -1964,6 +1990,153 @@ def sharding_phase(cuda, card, bench, main) -> dict:
     return counts
 
 
+# Phase 17: the decode probes. Each record's name, its TPU kernel and where to
+# find its step loop in the SASS: (marker opcode, samples a marker, opcodes
+# the loop must not hold) for each loop on a sample's path.
+PROBE_WORD_LOOP = (("LDG", 8, ()),)  # one 32-bit word of 8 codes loaded a lane a pass
+PROBE_PHASE_A = {
+    "full": ("phase_a_kernelILi0E", ":246", PROBE_WORD_LOOP),
+    "lms_only": ("phase_a_kernelILi1E", ":246", PROBE_WORD_LOOP),
+    "qdiff_only": ("phase_a_kernelILi2E", ":246", PROBE_WORD_LOOP),
+    # the qdiff loop (words in, qdiffs to shared memory), then the LMS loop (one qdiff out of it a sample)
+    "two_loop": ("phase_a_kernelILi3E", ":246", (("LDG", 8, ()), ("LDS", 1, ("LDG",)))),
+    "pipelined": ("phase_a_kernelILi4E", ":246", PROBE_WORD_LOOP),
+}
+PROBE_LAYOUT_LINE = {"natural": ":88", "lane_major": ":134", "tile_major": ":224"}
+PROBE_ODD = {"phase_a": ((13, 1000, 64), (40, 333, 128), (37, 96, 32)), "layout": ((1000, 13), (4159, 3), (70, 9))}
+
+
+def probe_per_sample(lib, symbol: str, loops) -> dict:
+    """Instructions a sample by pipe on a probe kernel's path: each loop's
+    count over the samples one pass of it takes, summed over the loops;
+    with ``branches``, the data-dependent branch regions (``BSSY``) in them."""
+    total = dict.fromkeys(PIPE_RATE, 0.0)
+    insns, samples, branches = 0, 0, 0
+    for marker, per, without in loops:
+        loop = sass_loop(symbol, marker, without, lib=lib)
+        ops = [op.split(".")[0] for _, op, _ in loop]
+        n = per * ops.count(marker)
+        counts = pipe_counts([op for _, op, _ in loop], n)
+        for p in PIPE_RATE:
+            total[p] += counts[p]
+        insns, samples, branches = insns + counts["insns"], samples + n, branches + ops.count("BSSY")
+    return {**total, "insns": insns, "samples": samples, "branches": branches}
+
+
+def probes_phase(cuda, card, build_future, main_launches) -> list[dict]:
+    """Phase 17: the decode probes (``aad_tpu_torch.probes``, kernels 6-8).
+    Each kernel and every built variant against its plain version, bit for
+    bit, at the probes' full sizes (the plain versions on the card) and at
+    odd sizes (on the host); then the three ``main()``s, which print their
+    times beside their bounds and the card; each record's bound from the
+    bytes and the compiled loop by pipe. Returns the kernels' records."""
+    import torch
+    from aad_tpu_torch import probes
+    from aad_tpu_torch.probes import decode_layout as dl, phase_a_decode as pa, transpose as tp
+
+    t0 = time.perf_counter()
+    lib, build_s = build_future.result()
+    probes.library()
+    print(f"[probes] {lib.relative_to(ROOT)} built in {build_s:.3f} s (beside phase 2's build)")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"[probes] ptxas: {line.split('ptxas info    : ')[-1]}")
+
+    def timed_plain(fn):
+        """The plain version's result, and its time: one call after that one."""
+        return fn(), cuda_ms(fn, 1, warmup=0)
+
+    errors, plain_ms = {}, {}
+    # kernel 6: the probe's (512, 64, 8, 128) on the card; the 4-byte path on the host
+    x = torch.from_numpy(np.random.default_rng(SEED).integers(-(2**31), 2**31, tp.SHAPE, dtype=np.int64)
+                         .astype(np.int32)).to(cuda)
+    want, plain_ms[tp.KERNEL] = timed_plain(lambda: tp.transpose_reference(x))
+    errors[tp.KERNEL] = max_err(tp.transpose(x), want)
+    for shape, off in (((37, 3, 5, 11), 0), ((68, 64), 1)):
+        flat = torch.from_numpy(np.random.default_rng(off).integers(-9, 9, int(np.prod(shape)) + off, dtype=np.int32))
+        odd = flat.to(cuda)[off:].view(shape)
+        errors[tp.KERNEL] = max(errors[tp.KERNEL], max_err(tp.transpose(odd), tp.transpose_reference(flat[off:].view(shape))))
+    del x, want
+    print(f"[probes] {tp.KERNEL} {tp.SHAPE} and {{(37, 3, 5, 11), (68, 64) 4 bytes off}}: max |err| {errors[tp.KERNEL]}")
+
+    # kernel 7: the probe's 28,672 lanes x 256 words, each form on the card against its plain version on the card
+    words = probes.on_device(pa.probe_words(), cuda)
+    plain_of = {}
+    for v in pa.VARIANTS:
+        key = "full" if v in pa.SAME_AS_FULL else v  # the same function: one plain run
+        if key not in plain_of:
+            plain_of[key] = timed_plain(lambda: pa.decode_reference(words, key))
+        name = f"{pa.KERNEL}[{v}]"
+        errors[name], plain_ms[name] = max_err(pa.decode(words, v), plain_of[key][0]), plain_of[key][1]
+        for W, L, lanes in PROBE_ODD["phase_a"]:
+            w = np.random.default_rng(W * L).integers(0, 2**32, (W, L), dtype=np.uint32)
+            errors[name] = max(errors[name], max_err(pa.decode(w, v, cta_lanes=lanes), pa.decode(w, v, device="cpu")))
+        print(f"[probes] {name} {tuple(words.shape)} (plain on the card {plain_ms[name]:.1f} ms) and "
+              f"{PROBE_ODD['phase_a']} (W, L, CTA lanes): max |err| {errors[name]}")
+    del words, plain_of
+
+    # kernel 8: the probe's 65,536 lanes x 128 words, each instance on the card against its plain version on the card
+    args = [probes.on_device(a, cuda) for a in dl.probe_inputs()]
+    plain_of = {}
+    for lay, r, mode in dl.INSTANCES:
+        if (lay, mode) not in plain_of:
+            plain_of[lay, mode] = timed_plain(lambda: dl.decode_reference(*args, layout=lay, mode=mode))
+        name = dl.instance(lay, r, mode)
+        errors[name], plain_ms[name] = max_err(dl.decode(*args, layout=lay, r=r, mode=mode), plain_of[lay, mode][0]), \
+            plain_of[lay, mode][1]
+        for L, W in PROBE_ODD["layout"]:
+            rng = np.random.default_rng(L + W)
+            a = (rng.integers(0, 2**32, (W, L), dtype=np.uint32), rng.integers(0, 4081, L).astype(np.int32),
+                 rng.integers(-30000, 30000, (4, L)).astype(np.int32), rng.integers(-20000, 20000, (4, L)).astype(np.int32))
+            errors[name] = max(errors[name], max_err(dl.decode(*a, layout=lay, r=r, mode=mode),
+                                                     dl.decode(*a, layout=lay, r=r, mode=mode, device="cpu")))
+        print(f"[probes] {name} (8W, L) = ({8 * args[0].shape[0]}, {args[0].shape[1]}) (plain on the card "
+              f"{plain_ms[name]:.1f} ms) and {PROBE_ODD['layout']} (L, W): max |err| {errors[name]}")
+    del args, plain_of
+    for name, err in errors.items():
+        check(err == 0, f"{name} != its plain version: max |err| {err}")
+    torch.cuda.synchronize()
+    print(f"[probes] every kernel and variant equal to its plain version, bit for bit, in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+
+    # the three main()s: their lines, and the times of the records
+    t1 = time.perf_counter()
+    tr = tp.main()
+    pa_runs = {rec["variant"]: rec for rec in pa.main() if rec["cta_lanes"] == probes.CTA_LANES}
+    dl_runs = {rec["instance"]: rec for rec in dl.main()}
+    print(f"[probes] the three main()s in {time.perf_counter() - t1:.1f} s")
+
+    def record(name, source, replaces, ms, bound_, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"aad_tpu_torch/probes/csrc/{source}", "replaces": replaces,
+                "launches": main_launches.get(name, 0), "max_abs_err": errors[name], "ms": ms,
+                "plain_ms": plain_ms[name], "bound_ms": bound_[0], "bound_by": bound_[1], "library_ms": library_ms}
+
+    records = [record(tp.KERNEL, "transpose.cu", "benchmarks/probe_transpose.py:84", tr["ms"],
+                      bound(tp.moved_bytes(int(np.prod(tp.SHAPE))), 0), tr["library_ms"])]
+    W, L = pa.WORDS, pa.LANES
+    for v, (symbol, line, loops) in PROBE_PHASE_A.items():
+        per = probe_per_sample(lib, symbol, loops)
+        b, pipe = loop_bound(pa.moved_bytes(W, L), 8 * W * L, per)
+        print(f"[sass] {pa.KERNEL}[{v}]: {sass_line(per, pipe)}; {per['branches']} branch regions; bound {b[0]:.4f} ms ({b[1]}), the bytes "
+              f"{pa.bound_ms(W, L):.4f}; the kernel {pa_runs[v]['ms']:.4f} ms, {b[0] / pa_runs[v]['ms']:.1%} of it ({card})")
+        records.append(record(f"{pa.KERNEL}[{v}]", "phase_a_decode.cu", f"benchmarks/probe_phase_a_decode.py{line}",
+                              pa_runs[v]["ms"], b))
+    W, L = dl.WORDS, dl.TILES * 1024
+    full_ms = dl_runs[dl.instance("natural", 1, "full")]["ms"]
+    for lay, r, mode in dl.INSTANCES:
+        name = dl.instance(lay, r, mode)
+        line = PROBE_LAYOUT_LINE[lay] if (r, mode) == (1, "full") else ":345" if mode == "full" else ":317"
+        per = probe_per_sample(lib, f"layout_kernelILi{dl.LAYOUTS.index(lay)}ELi{r}ELi{dl.MODES.index(mode)}E",
+                               PROBE_WORD_LOOP)
+        b, pipe = loop_bound(dl.moved_bytes(W, L), 8 * W * L, per)
+        ms = dl_runs[name]["ms"]
+        print(f"[sass] {name}: {sass_line(per, pipe)}; {per['branches']} branch regions; bound {b[0]:.4f} ms ({b[1]}), the bytes "
+              f"{dl.bound_ms(W, L):.4f}; the kernel {ms:.4f} ms, {b[0] / ms:.1%} of it"
+              + (f"; saves {(full_ms - ms) / full_ms:.1%} of full" if mode != "full" else "") + f" ({card})")
+        records.append(record(name, "decode_layout.cu", f"benchmarks/probe_decode_layout.py{line}", ms, b))
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1972,6 +2145,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     import aad_tpu_torch as at
+    from aad_tpu_torch import probes
     from aad_tpu_torch.ops import _build, fused_decode as fd
     from aad_tpu_torch.tables import STEPSIZE_TABLE
 
@@ -1985,12 +2159,16 @@ def main() -> int:
           f"triton {'present' if importlib.util.find_spec('triton') else 'absent'}")
 
     # 2. build: the kernels (one nvcc a source) and, beside them, the native host engine (the host compiler)
+    # and the probes' kernels (phase 17 reports their build)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        native_build = pool.submit(at.native.build)
-        lib_path = _build.build()
-        kernels_s = time.perf_counter() - t0
-        native_path = native_build.result()
+    pool = ThreadPoolExecutor(2)
+    if sys.argv[1:] != ["--sharding"]:
+        probes_build = pool.submit(lambda: (probes.build(), time.perf_counter() - t0))
+    native_build = pool.submit(at.native.build)
+    lib_path = _build.build()
+    kernels_s = time.perf_counter() - t0
+    native_path = native_build.result()
+    pool.shutdown(wait=False)
     _build.library()
     at.native.library()
     print(f"[build] {lib_path.relative_to(_build.BUILD_DIR.parents[1])} in {kernels_s:.3f} s; "
@@ -2010,6 +2188,15 @@ def main() -> int:
         print(f"[shard] {torch.cuda.device_count()} cards: {every}")
         print(json.dumps({"sharding_launches": sharding_phase(cuda, card, dict(data=data, header=header), encoded)}))
         stamp("16 sharding")
+        return 0
+    if sys.argv[1:] == ["--probes"]:
+        # phase 17 alone; nothing of a main path has run, so no probe launched on one
+        records = probes_phase(cuda, card, probes_build, probe_launches())
+        stamp("17 probes")
+        print(json.dumps({"kernels": records}))
+        print(smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
     # 3. probe
     probe = fd.stepsize_probe(cuda)
@@ -2064,6 +2251,7 @@ def main() -> int:
     # 5. main path at full size
     num_samples = RATE * SECONDS
     data, header = bench_stream(num_samples)
+    reset_probe_launches()  # counted from here to phase 17: every main path
     fd.reset_launches()
     t0 = time.perf_counter()
     h, pcm = at.decode(data, device="cuda")
@@ -2222,6 +2410,9 @@ def main() -> int:
     for record in records:
         record["launches"] += shard_counts.get(record["name"], 0)
     stamp("16 sharding")
+    # 17. the decode probes, kernels 6-8: on no main path, so their launches there are 0
+    records += probes_phase(cuda, card, probes_build, probe_launches())
+    stamp("17 probes")
 
     print(json.dumps({"kernels": records}))
     print(smi())

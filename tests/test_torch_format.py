@@ -203,24 +203,27 @@ def test_header_validation_matches(field, value, error):
 
 
 def test_import_pulls_in_no_jax():
-    """The port imports torch and numpy only: never jax, never aad_tpu. Every
-    module of the package is imported, found by walking it, with jax and
-    aad_tpu blocked (an import of either raises); ``__main__``, which runs
-    the CLI, is only listed."""
+    """The port imports torch and numpy only: never jax, never aad_tpu, never
+    the probe scripts of ``benchmarks``. Every module of the package is
+    imported, found by walking it, with jax, aad_tpu and benchmarks blocked
+    (an import of any raises); ``__main__``, which runs the CLI, is only
+    listed."""
     code = (
         "import importlib, pkgutil, sys;"
-        "sys.modules.update(dict.fromkeys(('jax', 'jaxlib', 'aad_tpu'), None));"
+        "sys.modules.update(dict.fromkeys(('jax', 'jaxlib', 'aad_tpu', 'benchmarks'), None));"
         "import aad_tpu_torch;"
         "mods = [m.name for m in pkgutil.walk_packages(aad_tpu_torch.__path__, 'aad_tpu_torch.')];"
         "[importlib.import_module(m) for m in mods if m != 'aad_tpu_torch.__main__'];"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aad_tpu')"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'aad_tpu', 'benchmarks')"
         " and sys.modules[m] is not None);"
         "need = {'aad_tpu_torch.ops.lms', 'aad_tpu_torch.ops.fused_encode', 'aad_tpu_torch.codec.streaming',"
         " 'aad_tpu_torch.io', 'aad_tpu_torch.format.wav', 'aad_tpu_torch.codec.batch_encode',"
         " 'aad_tpu_torch.utils.quality', 'aad_tpu_torch.utils.debug', 'aad_tpu_torch.utils.profiling',"
         " 'aad_tpu_torch.utils.time_encode', 'aad_tpu_torch.cli', 'aad_tpu_torch.cliparse',"
         " 'aad_tpu_torch.__main__', 'aad_tpu_torch.native', 'aad_tpu_torch.codec.transfer',"
-        " 'aad_tpu_torch.parallel', 'aad_tpu_torch.parallel.sharded'};"
+        " 'aad_tpu_torch.parallel', 'aad_tpu_torch.parallel.sharded', 'aad_tpu_torch.probes',"
+        " 'aad_tpu_torch.probes.transpose', 'aad_tpu_torch.probes.phase_a_decode',"
+        " 'aad_tpu_torch.probes.decode_layout'};"
         "print(len(mods), bad, sorted(need - set(mods))); sys.exit(1 if bad or need - set(mods) else 0)"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

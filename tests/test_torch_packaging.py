@@ -1,5 +1,6 @@
 """The wheel carries the port's sources: its CUDA kernels, the native host
-engine it builds at first use, and the sharded module.
+engine it builds at first use, the sharded module and the decode probes
+with their kernels.
 
 Builds a wheel with pip from a copy of ``pyproject.toml``, ``README.md``,
 ``aad_tpu/`` and ``aad_tpu_torch/`` (a build writes ``build/`` and egg-info
@@ -50,6 +51,16 @@ def test_wheel_carries_kernel_sources_and_sharding(wheel_names):
     assert sources and set(sources) <= wheel_names
     for name in ("aad_tpu_torch/parallel/__init__.py", "aad_tpu_torch/parallel/sharded.py"):
         assert name in wheel_names, f"wheel is missing {name}"
+
+
+def test_wheel_carries_probe_sources(wheel_names):
+    sources = sorted(p.relative_to(REPO).as_posix() for ext in ("*.cu", "*.cuh")
+                     for p in (REPO / "aad_tpu_torch" / "probes" / "csrc").glob(ext))
+    assert len(sources) >= 4, sources
+    missing = set(sources) - wheel_names
+    assert not missing, f"wheel is missing {sorted(missing)}"
+    for name in ("__init__.py", "transpose.py", "phase_a_decode.py", "decode_layout.py"):
+        assert f"aad_tpu_torch/probes/{name}" in wheel_names, f"wheel is missing aad_tpu_torch/probes/{name}"
 
 
 def test_wheel_ships_no_built_library(wheel_names):
