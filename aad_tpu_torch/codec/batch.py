@@ -26,6 +26,7 @@ from ..format.framing import pad_to_blocks, parse_block_headers
 from ..format.geometry import geometry_from_header, num_blocks_for
 from ..format.header import HeaderInfo, decode_header, validate_header
 from ..ops.fused_decode import stepsize_corrections
+from ..utils.trace import count, span
 from .decoder import _decode_lanes_pcm, resolve_engine, stream_bytes
 from .device import resolve_device
 
@@ -44,43 +45,52 @@ def decode_batch(
     stays on ``device``, where ``aad_tpu`` takes the native engine off the
     TPU: the port runs on the card unless the caller asks otherwise.
     """
-    native = native_engine.resolve(engine)
-    if native is not None:
-        return [(h, pcm.astype(np.int16)) for h, pcm in native.decode_batch(streams)]
-    engine = resolve_engine(engine)
-    device = resolve_device(device)
-    if engine == "fused":
-        stepsize_corrections(device)
+    with span("aad.decode_batch"):
+        native = native_engine.resolve(engine)
+        if native is not None:
+            return [(h, pcm.astype(np.int16)) for h, pcm in native.decode_batch(streams)]
+        engine = resolve_engine(engine)
+        device = resolve_device(device)
+        if engine == "fused":
+            stepsize_corrections(device)
 
-    parsed = []
-    for data in streams:
-        buf = stream_bytes(data)
-        header = decode_header(buf[:FILE_HEADER_SIZE].tobytes())
-        validate_header(header)
-        geo = geometry_from_header(header.num_channels, header.bits_per_sample, header.block_size)
-        parsed.append((header, geo, buf[FILE_HEADER_SIZE:]))
+        parsed = []
+        for data in streams:
+            buf = stream_bytes(data)
+            header = decode_header(buf[:FILE_HEADER_SIZE].tobytes())
+            validate_header(header)
+            geo = geometry_from_header(header.num_channels, header.bits_per_sample, header.block_size)
+            parsed.append((header, geo, buf[FILE_HEADER_SIZE:]))
 
-    groups: dict[tuple, list[int]] = {}
-    for i, (h, geo, _) in enumerate(parsed):
-        key = (geo.num_channels, geo.bits_per_sample, geo.block_size, h.ch_process_method == CH_PROCESS_MS)
-        groups.setdefault(key, []).append(i)
+        groups: dict[tuple, list[int]] = {}
+        for i, (h, geo, _) in enumerate(parsed):
+            key = (geo.num_channels, geo.bits_per_sample, geo.block_size, h.ch_process_method == CH_PROCESS_MS)
+            groups.setdefault(key, []).append(i)
 
-    results: list = [None] * len(parsed)
-    for idxs in groups.values():
-        header, geo, _ = parsed[idxs[0]]
-        nspb = geo.num_samples_per_block
-        spans, rows = [], []  # (first block, samples) per stream; (nb, block_size) byte rows
-        start = 0
-        for i in idxs:
-            h, _, payload = parsed[i]
-            nb = num_blocks_for(h.num_samples, nspb)
-            rows.append(pad_to_blocks(payload, nb, geo))
-            spans.append((start, h.num_samples))
-            start += nb
-        blocks = torch.cat(rows).to(device)
-        pcm = _decode_lanes_pcm(
-            blocks, parse_block_headers(blocks, geo), header, start * nspb, engine, geo
-        ).cpu().numpy()  # (C, start * nspb) int16
-        for i, (b0, n) in zip(idxs, spans):
-            results[i] = (parsed[i][0], pcm[:, b0 * nspb : b0 * nspb + n])
-    return results
+        results: list = [None] * len(parsed)
+        for idxs in groups.values():
+            header, geo, _ = parsed[idxs[0]]
+            nspb = geo.num_samples_per_block
+            spans, rows = [], []  # (first block, samples) per stream; (nb, block_size) byte rows
+            start = 0
+            with span("aad.frame.blocks"):
+                for i in idxs:
+                    h, _, payload = parsed[i]
+                    nb = num_blocks_for(h.num_samples, nspb)
+                    rows.append(pad_to_blocks(payload, nb, geo))
+                    spans.append((start, h.num_samples))
+                    start += nb
+                rows = torch.cat(rows)
+            with span("aad.h2d"):
+                count("h2d_bytes", rows.nbytes)
+                blocks = rows.to(device)
+            with span("aad.frame.blocks"):
+                states = parse_block_headers(blocks, geo)
+            with span("aad.decode.pcm"):
+                pcm = _decode_lanes_pcm(blocks, states, header, start * nspb, engine, geo)
+            with span("aad.d2h"):
+                count("d2h_bytes", pcm.nbytes)
+                pcm = pcm.cpu().numpy()  # (C, start * nspb) int16
+            for i, (b0, n) in zip(idxs, spans):
+                results[i] = (parsed[i][0], pcm[:, b0 * nspb : b0 * nspb + n])
+        return results

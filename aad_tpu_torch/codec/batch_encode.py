@@ -44,6 +44,7 @@ import torch
 from .. import native as native_engine
 from ..format.geometry import num_blocks_for
 from ..format.header import encode_header
+from ..utils.trace import count, span
 from .device import resolve_device
 from .encoder import EncodeConfig, as_int16, encode_blocks, payload_size, resolve_engine
 from .result import InvalidArgumentError
@@ -71,44 +72,49 @@ def encode_batch(
     where ``aad_tpu`` takes the native engine off the TPU: the port runs on
     the card unless the caller asks otherwise.
     """
-    config.validate()
-    native = native_engine.resolve(resolve_engine(engine))
-    nch = config.num_channels
-    arrays = []
-    for pcm in streams:
-        pcm = np.asarray(pcm)
-        if pcm.ndim != 2 or pcm.shape[0] != nch:
-            raise InvalidArgumentError(f"stream must be ({nch}, N); got {pcm.shape}")
-        arrays.append(pcm)
-    if not arrays:
-        return []
-    # encode_header re-validates, with the header-time checks (num_samples > 0)
-    file_headers = [encode_header(config.header_for(pcm.shape[1])) for pcm in arrays]
-    arrays = [as_int16(pcm) for pcm in arrays]
-    if native is not None:
-        return native.encode_batch(arrays, config, parallel_blocks=parallel_blocks,
-                                   chunk_blocks=parallel_chunk_blocks, warm_passes=parallel_warm_passes)
+    with span("aad.encode_batch"):
+        config.validate()
+        native = native_engine.resolve(resolve_engine(engine))
+        nch = config.num_channels
+        with span("aad.encode_batch.check"):
+            arrays = []
+            for pcm in streams:
+                pcm = np.asarray(pcm)
+                if pcm.ndim != 2 or pcm.shape[0] != nch:
+                    raise InvalidArgumentError(f"stream must be ({nch}, N); got {pcm.shape}")
+                arrays.append(pcm)
+            if not arrays:
+                return []
+            # encode_header re-validates, with the header-time checks (num_samples > 0)
+            file_headers = [encode_header(config.header_for(pcm.shape[1])) for pcm in arrays]
+            arrays = [as_int16(pcm) for pcm in arrays]
+        if native is not None:
+            return native.encode_batch(arrays, config, parallel_blocks=parallel_blocks,
+                                       chunk_blocks=parallel_chunk_blocks, warm_passes=parallel_warm_passes)
 
-    device = resolve_device(device)
-    geo = config.geometry()
-    nspb = geo.num_samples_per_block
-    lengths = [pcm.shape[1] for pcm in arrays]
-    S = len(arrays)
-    B = max(num_blocks_for(n, nspb) for n in lengths)
-    pile = _stage(arrays, B * nspb, device)
-    # valid samples per (block, stream), broadcast over the channels
-    starts = torch.arange(B, device=device)[:, None] * nspb
-    valid = torch.clamp(torch.tensor(lengths, device=device)[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
-    blocks = pile.reshape(S, nch, B, nspb).permute(2, 0, 1, 3)  # (B, S, C, nspb), a view
-    out = encode_blocks(blocks, valid, config, parallel_blocks, parallel_chunk_blocks, parallel_warm_passes)
+        device = resolve_device(device)
+        geo = config.geometry()
+        nspb = geo.num_samples_per_block
+        lengths = [pcm.shape[1] for pcm in arrays]
+        S = len(arrays)
+        B = max(num_blocks_for(n, nspb) for n in lengths)
+        pile = _stage(arrays, B * nspb, device)
+        # valid samples per (block, stream), broadcast over the channels
+        starts = torch.arange(B, device=device)[:, None] * nspb
+        valid = torch.clamp(torch.tensor(lengths, device=device)[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
+        blocks = pile.reshape(S, nch, B, nspb).permute(2, 0, 1, 3)  # (B, S, C, nspb), a view
+        out = encode_blocks(blocks, valid, config, parallel_blocks, parallel_chunk_blocks, parallel_warm_passes)
 
-    # one D2H, into pinned memory: a pageable copy of a pile's blocks runs
-    # far slower (PERF.md)
-    rows = out.transpose(0, 1).contiguous()  # (S, B, block_size)
-    host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=device.type == "cuda")
-    rows = host.copy_(rows).numpy()
-    return [head + memoryview(rows[s].reshape(-1)[: payload_size(geo, n)])
-            for s, (head, n) in enumerate(zip(file_headers, lengths))]
+        # one D2H, into pinned memory: a pageable copy of a pile's blocks runs
+        # far slower (PERF.md)
+        rows = out.transpose(0, 1).contiguous()  # (S, B, block_size)
+        host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=device.type == "cuda")
+        with span("aad.d2h"):
+            count("d2h_bytes", rows.nbytes)
+            rows = host.copy_(rows).numpy()
+        with span("aad.encode_batch.assemble"):
+            return [head + memoryview(rows[s].reshape(-1)[: payload_size(geo, n)])
+                    for s, (head, n) in enumerate(zip(file_headers, lengths))]
 
 
 def _stage(arrays: list[np.ndarray], width: int, device: torch.device) -> torch.Tensor:
@@ -116,10 +122,13 @@ def _stage(arrays: list[np.ndarray], width: int, device: torch.device) -> torch.
     end: laid out on the host in one pinned buffer and copied at once (a
     pageable copy a stream costs the host more than the whole pile's copy;
     PERF.md)."""
-    staged = torch.empty((len(arrays), arrays[0].shape[0], width), dtype=torch.int16,
-                         pin_memory=device.type == "cuda")
-    view = staged.numpy()
-    for s, pcm in enumerate(arrays):
-        view[s, :, : pcm.shape[1]] = pcm
-        view[s, :, pcm.shape[1] :] = 0
-    return staged.to(device, non_blocking=True)
+    with span("aad.encode_batch.stage"):
+        staged = torch.empty((len(arrays), arrays[0].shape[0], width), dtype=torch.int16,
+                             pin_memory=device.type == "cuda")
+        view = staged.numpy()
+        for s, pcm in enumerate(arrays):
+            view[s, :, : pcm.shape[1]] = pcm
+            view[s, :, pcm.shape[1] :] = 0
+        with span("aad.h2d"):
+            count("h2d_bytes", staged.nbytes)
+            return staged.to(device, non_blocking=True)

@@ -82,6 +82,7 @@ from ..ops.fused_decode import decode_lanes, stepsize_corrections
 from ..ops.lms import lms_lanes
 from .. import native as native_engine
 from ..utils import debug
+from ..utils.trace import span
 from .device import resolve_device
 from .result import InsufficientDataError, InvalidArgumentError
 from .transfer import Transfer, host_parallel
@@ -318,9 +319,11 @@ class Decoder:
 
     def _decode_prefix(self, payload: torch.Tensor, nblocks: int, num_samples: int) -> torch.Tensor:
         """Decode the first ``nblocks`` blocks to (C, num_samples) int16."""
-        blocks = pad_to_blocks(payload, nblocks, self.geometry)
-        states = parse_block_headers(blocks, self.geometry)
-        return _decode_lanes_pcm(blocks, states, self.header, num_samples, self.engine, self.geometry)
+        with span("aad.frame.blocks"):
+            blocks = pad_to_blocks(payload, nblocks, self.geometry)
+            states = parse_block_headers(blocks, self.geometry)
+        with span("aad.decode.pcm"):
+            return _decode_lanes_pcm(blocks, states, self.header, num_samples, self.engine, self.geometry)
 
     def decode_time_range(self, payload, start_seconds: float, end_seconds: float) -> torch.Tensor:
         """Random-access decode of a time window (seek support).
@@ -414,14 +417,15 @@ def decode(
     samples (see Decoder.decode_payload_ondevice); the native engine does
     the same.
     """
-    buf = stream_view(data)
-    header = decode_header(buf[:FILE_HEADER_SIZE].tobytes())
-    native = native_engine.resolve(engine)
-    if native is not None:
-        validate_header(header)
-        geo = geometry_from_header(header.num_channels, header.bits_per_sample, header.block_size)
-        if strict or buf.shape[0] - FILE_HEADER_SIZE >= encoded_stream_size(geo, header.num_samples):
-            return native.decode(buf)
-        return header, _native_lenient(buf, header)
-    dec = Decoder.from_header(header, device=device, engine=engine)
-    return header, dec.decode_payload_host(buf[FILE_HEADER_SIZE:], strict=strict)
+    with span("aad.decode"):
+        buf = stream_view(data)
+        header = decode_header(buf[:FILE_HEADER_SIZE].tobytes())
+        native = native_engine.resolve(engine)
+        if native is not None:
+            validate_header(header)
+            geo = geometry_from_header(header.num_channels, header.bits_per_sample, header.block_size)
+            if strict or buf.shape[0] - FILE_HEADER_SIZE >= encoded_stream_size(geo, header.num_samples):
+                return native.decode(buf)
+            return header, _native_lenient(buf, header)
+        dec = Decoder.from_header(header, device=device, engine=engine)
+        return header, dec.decode_payload_host(buf[FILE_HEADER_SIZE:], strict=strict)

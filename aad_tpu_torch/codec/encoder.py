@@ -72,6 +72,7 @@ from ..ops.encode import BlockHeaderFields, encode_blocks_parallel, lr_to_ms
 from ..ops.fused_encode import encode_stream
 from ..ops.transitions import CodecState
 from .. import native as native_engine
+from ..utils.trace import span
 from .device import resolve_device
 from .result import InvalidArgumentError, InvalidFormatError
 from .transfer import Transfer, host_parallel
@@ -426,9 +427,10 @@ def encode(
     engine, whatever ``device``); ``"auto"`` never runs the native engine,
     where ``aad_tpu``'s does: the port runs on the card unless the caller
     asks otherwise."""
-    if resolve_engine(engine) == "native":
-        return _encode_native(pcm, config, parallel_blocks, parallel_chunk_blocks, parallel_warm_passes)
-    return Encoder.from_config(
-        config, device=device, parallel_blocks=parallel_blocks,
-        parallel_chunk_blocks=parallel_chunk_blocks, parallel_warm_passes=parallel_warm_passes,
-    ).encode(pcm)
+    with span("aad.encode"):
+        if resolve_engine(engine) == "native":
+            return _encode_native(pcm, config, parallel_blocks, parallel_chunk_blocks, parallel_warm_passes)
+        return Encoder.from_config(
+            config, device=device, parallel_blocks=parallel_blocks,
+            parallel_chunk_blocks=parallel_chunk_blocks, parallel_warm_passes=parallel_warm_passes,
+        ).encode(pcm)

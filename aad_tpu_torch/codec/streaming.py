@@ -37,6 +37,7 @@ from ..format.geometry import encoded_block_bytes, geometry_from_header, num_blo
 from ..format.header import HeaderInfo, decode_header, encode_header, validate_header
 from ..ops.encode import lr_to_ms
 from ..ops.fused_encode import encode_stream
+from ..utils.trace import count, span
 from .. import native as native_engine
 from .decoder import Decoder, resolve_engine
 from .device import resolve_device
@@ -198,10 +199,30 @@ class StreamingDecoder:
 
     def push(self, data: bytes) -> np.ndarray:
         """Feed stream bytes; returns (C, n) int16 decoded samples (n may be 0)."""
+        with span("aad.stream_decode.push"):
+            with span("aad.push.frame"):
+                payload, nblocks, emit = self._frame(data)
+            if not nblocks:
+                return self._empty()
+            if self._native is not None:
+                return self._native.decode_payload_blocks(payload, self._header, emit).astype(np.int16)
+            with span("aad.h2d"):
+                count("h2d_bytes", payload.nbytes)
+                payload = torch.from_numpy(payload).to(self._device)
+            # only the stream's last block is short, so the samples are a prefix
+            pcm = self._decoder._decode_prefix(payload, nblocks, emit)
+            with span("aad.d2h"):
+                count("d2h_bytes", pcm.nbytes)
+                return pcm.cpu().numpy()
+
+    def _frame(self, data: bytes) -> tuple[np.ndarray | None, int, int]:
+        """Queue ``data``, parse the file header once it has arrived, and
+        pop every decodable block: (their bytes, blocks, samples a channel
+        they hold); (None, 0, 0) where no block is whole yet."""
         self._buffer.append(bytes(data))
         if self._header is None:
             if len(self._buffer) < FILE_HEADER_SIZE:
-                return self._empty()
+                return None, 0, 0
             header = decode_header(self._buffer.pop(FILE_HEADER_SIZE))
             validate_header(header)
             self._header = header
@@ -229,15 +250,11 @@ class StreamingDecoder:
             emit += valid
             remaining -= valid
         if not rows:
-            return self._empty()
+            return None, 0, 0
         self._samples_out += emit
-        if self._native is not None:
-            # 4 bytes of slack past the blocks for the engine's SIMD reads
-            payload = np.concatenate(rows + [np.zeros(4, dtype=np.uint8)])
-            return self._native.decode_payload_blocks(payload, h, emit).astype(np.int16)
-        # only the stream's last block is short, so the samples are a prefix
-        payload = torch.from_numpy(np.concatenate(rows)).to(self._device)
-        return self._decoder._decode_prefix(payload, len(rows), emit).cpu().numpy()
+        # the native engine reads 4 bytes of slack past the blocks (SIMD)
+        slack = [np.zeros(4, dtype=np.uint8)] if self._native is not None else []
+        return np.concatenate(rows + slack), len(rows), emit
 
     def _empty(self) -> np.ndarray:
         # the channel count is unknown until the header has arrived

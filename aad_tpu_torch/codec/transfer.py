@@ -31,6 +31,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from ..utils.trace import count, span
+
 # Bytes a thread of host_parallel takes at least: below it, a thread costs
 # more than it saves.
 _THREAD_BYTES = 1 << 21
@@ -72,10 +74,12 @@ class Transfer:
         """A contiguous host tensor on the device, for work on the compute
         stream: the copy runs on the upload stream, and the compute stream's
         later work waits for it. On the CPU, ``host`` itself."""
-        if not self.cuda:
-            return host
-        with torch.cuda.stream(self.up):
-            dev = host.to(self.device, non_blocking=True)
+        with span("aad.h2d"):
+            count("h2d_bytes", host.nbytes)
+            if not self.cuda:
+                return host
+            with torch.cuda.stream(self.up):
+                dev = host.to(self.device, non_blocking=True)
         self.compute.wait_stream(self.up)
         dev.record_stream(self.compute)
         return dev
@@ -86,14 +90,16 @@ class Transfer:
         stream's work so far is done. ``host`` holds the values after
         :meth:`finish`."""
         pairs = [(dev, host)] if host.is_contiguous() else list(zip(dev, host))
-        if not self.cuda:
-            for d, h in pairs:
-                h.copy_(d)
-            return
-        self.down.wait_stream(self.compute)
-        with torch.cuda.stream(self.down):
-            for d, h in pairs:
-                h.copy_(d, non_blocking=True)
+        with span("aad.d2h"):
+            count("d2h_bytes", host.nbytes)
+            if not self.cuda:
+                for d, h in pairs:
+                    h.copy_(d)
+                return
+            self.down.wait_stream(self.compute)
+            with torch.cuda.stream(self.down):
+                for d, h in pairs:
+                    h.copy_(d, non_blocking=True)
         dev.record_stream(self.down)
 
     def finish(self) -> None:

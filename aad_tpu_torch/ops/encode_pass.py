@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import FILTER_ORDER
+from ..utils.trace import span
 from . import _build
 from .encode import _encode_span
 from .transitions import CodecState, index_table, stepsize_table
@@ -116,15 +117,16 @@ def _launch(samples_tm, state, valid, bits_per_sample, emit_codes):
     codes = torch.empty((T, L), dtype=torch.uint8, device=device) if emit_codes else None
     if L == 0:
         return out, codes, sse
-    lib = _build.library()
-    err = lib.aad_encode_pass(
-        samples_tm.data_ptr(), state.step_index.data_ptr(), state.history.data_ptr(),
-        state.weight.data_ptr(), valid.data_ptr(), stepsize_table(device).data_ptr(),
-        index_table(bits_per_sample, device).data_ptr(),
-        codes.data_ptr() if emit_codes else None, out.step_index.data_ptr(),
-        out.history.data_ptr(), out.weight.data_ptr(), sse.data_ptr(),
-        L, T, bits_per_sample, *_build.launch_target(device),
-    )
-    _build.check(lib, PASS_KERNEL, err)
+    with span("aad.launch.encode_pass"):
+        lib = _build.library()
+        err = lib.aad_encode_pass(
+            samples_tm.data_ptr(), state.step_index.data_ptr(), state.history.data_ptr(),
+            state.weight.data_ptr(), valid.data_ptr(), stepsize_table(device).data_ptr(),
+            index_table(bits_per_sample, device).data_ptr(),
+            codes.data_ptr() if emit_codes else None, out.step_index.data_ptr(),
+            out.history.data_ptr(), out.weight.data_ptr(), sse.data_ptr(),
+            L, T, bits_per_sample, *_build.launch_target(device),
+        )
+        _build.check(lib, PASS_KERNEL, err)
     launches[PASS_KERNEL] += 1
     return out, codes, sse

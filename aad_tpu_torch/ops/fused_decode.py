@@ -35,6 +35,7 @@ from ..codec.device import resolve_device
 from ..constants import FILTER_ORDER, STEPSIZE_TABLE_SIZE, TABLES_FLOAT_DIGITS
 from ..format.geometry import BlockGeometry
 from ..tables import STEPSIZE_TABLE
+from ..utils.trace import span
 from . import _build, bitpack
 from .decode import decode_blocks_reference
 from .transitions import index_table, stepsize_from_index, stepsize_table
@@ -142,15 +143,16 @@ def decode_lanes(
     # the kernel copies 4-byte words from 4-byte boundaries: it takes the
     # rows from the boundary at or before them, and how far before
     skew = rows.data_ptr() % 4
-    lib = _build.library()
-    err = lib.aad_decode_lanes(
-        rows.data_ptr() - skew, skew, step_index.data_ptr(), history.data_ptr(),
-        weight.data_ptr(), stepsize_table(device).data_ptr(),
-        index_table(bits_per_sample, device).data_ptr(), out.data_ptr(),
-        B, C, T, block_bytes, data_offset, bits_per_sample, int(geo is not None),
-        *_build.launch_target(device),
-    )
-    _build.check(lib, DECODE_KERNEL, err)
+    with span("aad.launch.decode_lanes"):
+        lib = _build.library()
+        err = lib.aad_decode_lanes(
+            rows.data_ptr() - skew, skew, step_index.data_ptr(), history.data_ptr(),
+            weight.data_ptr(), stepsize_table(device).data_ptr(),
+            index_table(bits_per_sample, device).data_ptr(), out.data_ptr(),
+            B, C, T, block_bytes, data_offset, bits_per_sample, int(geo is not None),
+            *_build.launch_target(device),
+        )
+        _build.check(lib, DECODE_KERNEL, err)
     launches[DECODE_KERNEL] += 1
     return out
 
@@ -171,11 +173,12 @@ def stepsize_probe(device) -> torch.Tensor:
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     out = torch.empty(STEPSIZE_TABLE_SIZE, dtype=torch.int32, device=device)
-    lib = _build.library()
-    err = lib.aad_stepsize_probe(
-        stepsize_table(device).data_ptr(), out.data_ptr(), *_build.launch_target(device),
-    )
-    _build.check(lib, PROBE_KERNEL, err)
+    with span("aad.launch.stepsize_probe"):
+        lib = _build.library()
+        err = lib.aad_stepsize_probe(
+            stepsize_table(device).data_ptr(), out.data_ptr(), *_build.launch_target(device),
+        )
+        _build.check(lib, PROBE_KERNEL, err)
     launches[PROBE_KERNEL] += 1
     return out
 

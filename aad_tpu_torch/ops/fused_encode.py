@@ -51,6 +51,7 @@ import torch
 
 from ..constants import FILTER_ORDER
 from ..format.geometry import BlockGeometry
+from ..utils.trace import span
 from . import _build, bitpack
 from .encode import BlockHeaderFields, _lane_valid, encode_stream_blocks_carry
 from .encode_pass import encode_pass
@@ -188,16 +189,17 @@ def encode_stream_tm(
     states = torch.empty((B, 9, L), **i32) if emit_block_states else None
     if L == 0:
         return codes, headers, states
-    lib = _build.library()
-    err = lib.aad_encode_stream(
-        samples.data_ptr(), prev0.data_ptr() if needs_prev else None, valid.data_ptr(),
-        state.step_index.data_ptr(), state.history.data_ptr(), state.weight.data_ptr(),
-        stepsize_table(device).data_ptr(), index_table(bits_per_sample, device).data_ptr(),
-        codes.data_ptr(), headers.data_ptr(), None if states is None else states.data_ptr(),
-        B, L, nspb, C, bits_per_sample, int(pack is not None), num_trials, int(warm_on_prev), int(blocks_before),
-        *_build.launch_target(device),
-    )
-    _build.check(lib, STREAM_KERNEL, err)
+    with span("aad.launch.encode_stream"):
+        lib = _build.library()
+        err = lib.aad_encode_stream(
+            samples.data_ptr(), prev0.data_ptr() if needs_prev else None, valid.data_ptr(),
+            state.step_index.data_ptr(), state.history.data_ptr(), state.weight.data_ptr(),
+            stepsize_table(device).data_ptr(), index_table(bits_per_sample, device).data_ptr(),
+            codes.data_ptr(), headers.data_ptr(), None if states is None else states.data_ptr(),
+            B, L, nspb, C, bits_per_sample, int(pack is not None), num_trials, int(warm_on_prev), int(blocks_before),
+            *_build.launch_target(device),
+        )
+        _build.check(lib, STREAM_KERNEL, err)
     launches[STREAM_KERNEL] += 1
     return codes, headers, states
 

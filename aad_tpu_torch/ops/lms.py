@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import FILTER_ORDER
+from ..utils.trace import span
 from . import _build
 from .decode import lms_scan
 
@@ -77,11 +78,12 @@ def lms_lanes(qdiffs_tm: torch.Tensor, history: torch.Tensor, weight: torch.Tens
     out = torch.empty((L, T + FILTER_ORDER), dtype=torch.int16, device=device)
     if L == 0:
         return out
-    lib = _build.library()
-    err = lib.aad_lms_lanes(
-        qdiffs_tm.data_ptr(), history.data_ptr(), weight.data_ptr(), out.data_ptr(),
-        L, T, *_build.launch_target(device),
-    )
-    _build.check(lib, LMS_KERNEL, err)
+    with span("aad.launch.lms_lanes"):
+        lib = _build.library()
+        err = lib.aad_lms_lanes(
+            qdiffs_tm.data_ptr(), history.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            L, T, *_build.launch_target(device),
+        )
+        _build.check(lib, LMS_KERNEL, err)
     launches[LMS_KERNEL] += 1
     return out

@@ -62,6 +62,7 @@ from ..constants import INT16_MAX, INT16_MIN
 from ..ops.decode import decode_blocks
 from ..ops.encode import BlockHeaderFields, parallel_warm_states, shift_chunk_states, to_chunks
 from ..ops.fused_encode import encode_stream
+from ..utils.trace import span
 
 # One tensor a shard, in mesh order, each on its shard's device.
 Shards = list
@@ -141,7 +142,8 @@ def _scatter(tensors, mesh: Mesh, pieces) -> list[tuple[torch.Tensor, ...]]:
     """Shard k's piece ``pieces[k]`` of every tensor, on its device. Every
     copy is queued before any shard's work: a copy between two cards runs
     on the source card's stream, behind what that card has queued."""
-    return [tuple(t[a:b].to(device) for t in tensors) for device, (a, b) in zip(mesh.shard_devices, pieces)]
+    with span("aad.sharded.scatter"):
+        return [tuple(t[a:b].to(device) for t in tensors) for device, (a, b) in zip(mesh.shard_devices, pieces)]
 
 
 def _on(device: torch.device):
@@ -193,12 +195,13 @@ def decode_blocks_sharded(
     Returns:
       (L, T + 4) int32 samples as :data:`Shards`.
     """
-    pieces = _scatter((codes, step_index, weight, history), mesh, _pieces(codes.shape[0], mesh.size))
-    out = []
-    for device, args in zip(mesh.shard_devices, pieces):
-        with _on(device):
-            out.append(decode_blocks(*args, bits_per_sample=bits_per_sample, engine=engine))
-    return out
+    with span("aad.decode_blocks_sharded"):
+        pieces = _scatter((codes, step_index, weight, history), mesh, _pieces(codes.shape[0], mesh.size))
+        out = []
+        for device, args in zip(mesh.shard_devices, pieces):
+            with _on(device):
+                out.append(decode_blocks(*args, bits_per_sample=bits_per_sample, engine=engine))
+        return out
 
 
 def encode_streams_sharded(
@@ -229,31 +232,32 @@ def encode_streams_sharded(
       nspb - 4) uint8 as Shards, the RMSE as a float32 scalar on the first
       device or None).
     """
-    blocks = _int16(blocks)
-    nspb = blocks.shape[-1]
-    pieces = _scatter((blocks, valid.to(torch.int32)), mesh, _pieces(blocks.shape[0], mesh.size))
-    headers, codes, sums, counts = [], [], [], []
-    for device, (bl, va) in zip(mesh.shard_devices, pieces):
-        with _on(device):
-            h, c, _ = encode_stream(bl.transpose(0, 1), va.t()[..., None], bits_per_sample, num_trials,
-                                    need_carry=False)
-            h = BlockHeaderFields(*(f.transpose(0, 1) for f in h))
-            c = c.transpose(0, 1)
-            headers.append(h)
-            codes.append(c)
-            if stat:
-                recon = decode_blocks(c, h.step_index, h.weight, h.history, bits_per_sample=bits_per_sample)
-                err = (recon - bl).to(torch.float32) * (1.0 / 32768.0)
-                live = (torch.arange(nspb, device=device) < va[..., None, None]).expand(err.shape)
-                sums.append(torch.where(live, err * err, 0.0).sum())
-                counts.append(live.sum())
-    rmse = None
-    if stat:
-        first = mesh.shard_devices[0]
-        gsse = torch.stack([s.to(first) for s in sums]).sum()
-        gcnt = torch.stack([n.to(first) for n in counts]).sum()
-        rmse = torch.sqrt(gsse / torch.clamp(gcnt, min=1).to(torch.float32))
-    return BlockHeaderFields(*(list(f) for f in zip(*headers))), codes, rmse
+    with span("aad.encode_streams_sharded"):
+        blocks = _int16(blocks)
+        nspb = blocks.shape[-1]
+        pieces = _scatter((blocks, valid.to(torch.int32)), mesh, _pieces(blocks.shape[0], mesh.size))
+        headers, codes, sums, counts = [], [], [], []
+        for device, (bl, va) in zip(mesh.shard_devices, pieces):
+            with _on(device):
+                h, c, _ = encode_stream(bl.transpose(0, 1), va.t()[..., None], bits_per_sample, num_trials,
+                                        need_carry=False)
+                h = BlockHeaderFields(*(f.transpose(0, 1) for f in h))
+                c = c.transpose(0, 1)
+                headers.append(h)
+                codes.append(c)
+                if stat:
+                    recon = decode_blocks(c, h.step_index, h.weight, h.history, bits_per_sample=bits_per_sample)
+                    err = (recon - bl).to(torch.float32) * (1.0 / 32768.0)
+                    live = (torch.arange(nspb, device=device) < va[..., None, None]).expand(err.shape)
+                    sums.append(torch.where(live, err * err, 0.0).sum())
+                    counts.append(live.sum())
+        rmse = None
+        if stat:
+            first = mesh.shard_devices[0]
+            gsse = torch.stack([s.to(first) for s in sums]).sum()
+            gcnt = torch.stack([n.to(first) for n in counts]).sum()
+            rmse = torch.sqrt(gsse / torch.clamp(gcnt, min=1).to(torch.float32))
+        return BlockHeaderFields(*(list(f) for f in zip(*headers))), codes, rmse
 
 
 def encode_blocks_parallel_sharded(
@@ -287,37 +291,38 @@ def encode_blocks_parallel_sharded(
       (headers with :data:`Shards` leaves (B, C[, 4]), codes (B, C,
       nspb - 4) uint8 as Shards).
     """
-    if engine != "auto":
-        raise InvalidArgumentError(f"encode_blocks_parallel_sharded: engine {engine!r}; only 'auto' is ported")
-    blocks = _int16(blocks)
-    c = max(int(chunk_blocks), 1)
-    B = blocks.shape[0]
-    blocks_of = [(g0 * c, min(g1 * c, B)) for g0, g1 in _pieces(-(-B // c), mesh.size)]
-    shards = []  # (device, chunked blocks, chunked valid, from_chunks)
-    for device, (bl, va) in zip(mesh.shard_devices, _scatter((blocks, valid.to(torch.int32)), mesh, blocks_of)):
-        with _on(device):
-            shards.append((device, *to_chunks(bl, va, c)))
-    warm = c > 1  # the chunk-internal previous-block warm-up
-    carries = [None] * len(shards)
-    for _ in range(warm_passes):
-        states = []
-        for (device, xs, vs, _), carry in zip(shards, carries):
+    with span("aad.encode_blocks_parallel_sharded"):
+        if engine != "auto":
+            raise InvalidArgumentError(f"encode_blocks_parallel_sharded: engine {engine!r}; only 'auto' is ported")
+        blocks = _int16(blocks)
+        c = max(int(chunk_blocks), 1)
+        B = blocks.shape[0]
+        blocks_of = [(g0 * c, min(g1 * c, B)) for g0, g1 in _pieces(-(-B // c), mesh.size)]
+        shards = []  # (device, chunked blocks, chunked valid, from_chunks)
+        for device, (bl, va) in zip(mesh.shard_devices, _scatter((blocks, valid.to(torch.int32)), mesh, blocks_of)):
             with _on(device):
-                states.append(parallel_warm_states(xs, vs, bits_per_sample, carry=carry, warm_on_prev=warm,
-                                                   stream=encode_stream))
-        head = None  # the previous shard's last chunk state; zeros for shard 0
-        for k, ((device, xs, _, _), st) in enumerate(zip(shards, states)):
-            if xs.shape[1] == 0:  # an empty shard: no chunk to seed
-                continue
+                shards.append((device, *to_chunks(bl, va, c)))
+        warm = c > 1  # the chunk-internal previous-block warm-up
+        carries = [None] * len(shards)
+        for _ in range(warm_passes):
+            states = []
+            for (device, xs, vs, _), carry in zip(shards, carries):
+                with _on(device):
+                    states.append(parallel_warm_states(xs, vs, bits_per_sample, carry=carry, warm_on_prev=warm,
+                                                       stream=encode_stream))
+            head = None  # the previous shard's last chunk state; zeros for shard 0
+            for k, ((device, xs, _, _), st) in enumerate(zip(shards, states)):
+                if xs.shape[1] == 0:  # an empty shard: no chunk to seed
+                    continue
+                with _on(device):
+                    carries[k] = (shift_chunk_states(st, None if head is None else head.to(device)),
+                                  torch.zeros_like(xs[0]))
+                head = st.map(lambda x: x[-1])
+        headers, codes = [], []
+        for (device, xs, vs, from_chunks), carry in zip(shards, carries):
             with _on(device):
-                carries[k] = (shift_chunk_states(st, None if head is None else head.to(device)),
-                              torch.zeros_like(xs[0]))
-            head = st.map(lambda x: x[-1])
-    headers, codes = [], []
-    for (device, xs, vs, from_chunks), carry in zip(shards, carries):
-        with _on(device):
-            h, k, _ = encode_stream(xs, vs, bits_per_sample, num_trials, carry=carry, warm_on_prev=warm,
-                                    need_carry=False)
-            headers.append(BlockHeaderFields(*(from_chunks(f) for f in h)))
-            codes.append(from_chunks(k))
-    return BlockHeaderFields(*(list(f) for f in zip(*headers))), codes
+                h, k, _ = encode_stream(xs, vs, bits_per_sample, num_trials, carry=carry, warm_on_prev=warm,
+                                        need_carry=False)
+                headers.append(BlockHeaderFields(*(from_chunks(f) for f in h)))
+                codes.append(from_chunks(k))
+        return BlockHeaderFields(*(list(f) for f in zip(*headers))), codes

@@ -26,7 +26,12 @@ def _require_cuda(what: str) -> None:
 def trace(log_dir: str):
     """Profile the body under ``torch.profiler`` (CPU and CUDA activities)
     and write ``<log_dir>/trace.json`` (open it in Perfetto or
-    chrome://tracing). Yields the profiler, for ``key_averages()``."""
+    chrome://tracing). Yields the profiler, for ``key_averages()``.
+
+    The trace carries the program's own spans (``aad.*``: API entries, host
+    framing and staging, copies, kernel launches; ``utils.trace``) as
+    ``cpu_op`` events on the caller's thread, and the bytes its copies move
+    are added to ``utils.trace.counts``."""
     _require_cuda("trace")
     from torch.profiler import ProfilerActivity, profile
 

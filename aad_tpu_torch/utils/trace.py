@@ -1,0 +1,65 @@
+"""The program's spans and counters, recorded only while torch.profiler records.
+
+``span(name)`` marks a stretch of the calling thread's host work: the API
+entries, the host's framing and staging, each host <-> device copy and each
+kernel launch. ``count(name, n)`` adds ``n`` to :data:`counts`. The running
+profiler is the only switch: where none records on the calling thread
+(``torch.autograd._profiler_enabled()`` is per thread, so a thread that the
+caller starts records nothing), both do nothing beyond that one check.
+
+Where one records, a span is a ``torch._C._profiler._RecordFunctionFast``: a
+``cpu_op`` on the profiler's host timeline, on the clock of the device's
+operations, with no image on the device's timeline (a ``record_function``
+annotation has one, and would read as a device operation). So a trace
+(``utils.profiling.trace``) puts every idle stretch of the card down to the
+span that the host was in. Spans nest as the calls nest; every name starts
+with ``aad.``:
+
+* API entries: ``aad.encode_batch``, ``aad.decode_batch``,
+  ``aad.stream_decode.push`` (``StreamingDecoder.push``), ``aad.decode``,
+  ``aad.encode``, ``aad.encode_streams_sharded``,
+  ``aad.decode_blocks_sharded``, ``aad.encode_blocks_parallel_sharded``;
+* host framing and staging: ``aad.encode_batch.check`` (shapes, int16
+  range, file headers), ``aad.encode_batch.stage`` (the pinned pile),
+  ``aad.encode_batch.assemble`` (the byte strings), ``aad.push.frame`` (the
+  byte queue and the block rows of a push), ``aad.frame.blocks`` (the block
+  rows and their header parse, ``Decoder._decode_prefix``; a
+  ``decode_batch``'s per-stream rows), ``aad.decode.pcm`` (the lane reorders
+  and mid/side around the decode kernel), ``aad.sharded.scatter`` (every
+  shard's input copies);
+* copies: ``aad.h2d`` and ``aad.d2h``, each counting the bytes it moves as
+  ``h2d_bytes`` and ``d2h_bytes`` (on a CPU device, where the copy is none,
+  the bytes it would move); a synchronous copy's span holds the host's wait
+  for the device;
+* kernel launches, on a card only: ``aad.launch.decode_lanes``,
+  ``aad.launch.stepsize_probe``, ``aad.launch.encode_stream``,
+  ``aad.launch.encode_pass``, ``aad.launch.lms_lanes``.
+
+Nothing else here records, times or prints. The kernel wrappers' ``launches``
+dicts count launches whether or not a profiler records.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
+
+# Totals over every traced stretch of the process, by counter name.
+counts: dict[str, int] = {}
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a ``cpu_op`` around its
+    body while a profiler records on this thread; else one that does
+    nothing."""
+    return _RecordFunctionFast(name) if _profiler_enabled() else _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to ``counts[name]`` while a profiler records on this thread."""
+    if _profiler_enabled():
+        counts[name] = counts.get(name, 0) + int(n)

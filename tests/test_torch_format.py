@@ -219,6 +219,7 @@ def test_import_pulls_in_no_jax():
         "need = {'aad_tpu_torch.ops.lms', 'aad_tpu_torch.ops.fused_encode', 'aad_tpu_torch.codec.streaming',"
         " 'aad_tpu_torch.io', 'aad_tpu_torch.format.wav', 'aad_tpu_torch.codec.batch_encode',"
         " 'aad_tpu_torch.utils.quality', 'aad_tpu_torch.utils.debug', 'aad_tpu_torch.utils.profiling',"
+        " 'aad_tpu_torch.utils.trace',"
         " 'aad_tpu_torch.utils.time_encode', 'aad_tpu_torch.cli', 'aad_tpu_torch.cliparse',"
         " 'aad_tpu_torch.__main__', 'aad_tpu_torch.native', 'aad_tpu_torch.codec.transfer',"
         " 'aad_tpu_torch.parallel', 'aad_tpu_torch.parallel.sharded', 'aad_tpu_torch.probes',"

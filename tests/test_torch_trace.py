@@ -1,0 +1,173 @@
+"""aad_tpu_torch.utils.trace: the program's spans and counters.
+
+Under a CPU ``torch.profiler``, ``encode_batch(device="cpu")``,
+``StreamingDecoder(device="cpu").push`` and ``encode_streams_sharded`` on a
+mesh of CPU shards record their documented ``aad.*`` spans, once each, in
+call order, each a ``cpu_op`` (a ``user_annotation`` would leave an image on
+a card's timeline) nested in the span documented as its parent; the copy
+spans add the bytes they move to ``counts``. With no profiler, or on a
+thread that the profiler does not record, nothing is recorded or counted.
+Imports no jax (``tests/test_torch_trace_gpu.py`` reuses these cases on a
+card). The launch spans exist on a card only: the GPU tests hold them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import threading
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import aad_tpu_torch
+from aad_tpu_torch import EncodeConfig
+from aad_tpu_torch.parallel import sharded as ts
+from aad_tpu_torch.utils import trace
+
+CFG = EncodeConfig(num_channels=2, sampling_rate=44100, bits_per_sample=4, max_block_size=96,
+                   ch_process_method=0, num_encode_trials=1)
+GEO = CFG.geometry()
+NSPB = GEO.num_samples_per_block
+
+
+def _pcm(seed: int, n: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    tone = 9000 * np.sin(np.arange(n) / (5.0 + 4 * rng.random((2, 1))))
+    return (tone + rng.normal(0, 900, (2, n))).astype(np.int16)
+
+
+def encode_batch_case(device):
+    """encode_batch of two streams of 2 and 1 blocks: (call, the spans in
+    call order as (name, parent's name), the counts it adds)."""
+    pile = [_pcm(1, NSPB + 5), _pcm(2, NSPB)]
+    S, B = len(pile), 2
+    spans = [
+        ("aad.encode_batch", None),
+        ("aad.encode_batch.check", "aad.encode_batch"),
+        ("aad.encode_batch.stage", "aad.encode_batch"),
+        ("aad.h2d", "aad.encode_batch.stage"),
+        ("aad.d2h", "aad.encode_batch"),
+        ("aad.encode_batch.assemble", "aad.encode_batch"),
+    ]
+    counts = {"h2d_bytes": S * 2 * B * NSPB * 2, "d2h_bytes": S * B * GEO.block_size}
+    return lambda: aad_tpu_torch.encode_batch(pile, CFG, device=device), spans, counts
+
+
+def push_case(device):
+    """One push of a whole three-block stream, its file header included,
+    into a new decoder."""
+    n = 2 * NSPB + 7
+    data = aad_tpu_torch.encode(_pcm(3, n), CFG, device="cpu")
+    push = "aad.stream_decode.push"
+    spans = [(push, None), ("aad.push.frame", push), ("aad.h2d", push), ("aad.frame.blocks", push),
+             ("aad.decode.pcm", push), ("aad.d2h", push)]
+    counts = {"h2d_bytes": 3 * GEO.block_size, "d2h_bytes": 2 * n * 2}
+    return lambda: aad_tpu_torch.StreamingDecoder(device=device).push(data), spans, counts
+
+
+def sharded_case(device):
+    """encode_streams_sharded of three streams over two shards."""
+    blocks = torch.stack([torch.from_numpy(_pcm(4 + s, 2 * NSPB)).reshape(2, 2, NSPB).transpose(0, 1)
+                          for s in range(3)]).to(device)
+    valid = torch.full((3, 2), NSPB, dtype=torch.int32, device=device)
+    mesh = ts.make_mesh(2, devices=[device] * 2, shape=(2, 1))
+    spans = [("aad.encode_streams_sharded", None), ("aad.sharded.scatter", "aad.encode_streams_sharded")]
+    call = lambda: ts.encode_streams_sharded(blocks, valid, bits_per_sample=4, num_trials=1, mesh=mesh)  # noqa: E731
+    return call, spans, {}
+
+
+CASES = {"encode_batch": encode_batch_case, "push": push_case, "sharded": sharded_case}
+
+
+def program_spans(prof) -> list:
+    """The ``aad.*`` events of a finished profile, in start order."""
+    events = [e for e in prof.profiler.kineto_results.events() if e.name().startswith("aad.")]
+    return sorted(events, key=lambda e: e.start_ns())
+
+
+def parent_of(e, events):
+    """The name of the innermost other ``aad.*`` span around ``e`` on its
+    thread, or None."""
+    around = [p for p in events if p is not e and p.start_thread_id() == e.start_thread_id()
+              and p.start_ns() <= e.start_ns() and e.end_ns() <= p.end_ns()]
+    return min(around, key=lambda p: p.end_ns() - p.start_ns()).name() if around else None
+
+
+def recorded(call, activities=(ProfilerActivity.CPU,)):
+    """``call()`` under torch.profiler: (its result, the profile, what
+    ``counts`` gained)."""
+    before = dict(trace.counts)
+    with profile(activities=list(activities)) as prof:
+        out = call()
+    gained = {k: v - before.get(k, 0) for k, v in trace.counts.items() if v != before.get(k, 0)}
+    return out, prof, gained
+
+
+def categories(prof) -> set:
+    """The trace event categories of the ``aad.*`` events, as a Chrome
+    trace of the profile (what Perfetto shows) gives them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return {e.get("cat") for e in events if str(e.get("name", "")).startswith("aad.")}
+
+
+def assert_documented(prof, expected: list) -> None:
+    """The program's spans are ``expected``'s (name, parent's name), in call
+    order, each a ``cpu_op`` and nothing else."""
+    spans = program_spans(prof)
+    assert [(e.name(), parent_of(e, spans)) for e in spans] == expected
+    assert categories(prof) == {"cpu_op"}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_spans_are_cpu_ops_nested_as_documented(case):
+    call, spans, counts = CASES[case]("cpu")
+    _, prof, gained = recorded(call)
+    assert_documented(prof, spans)
+    assert gained == counts
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_nothing_records_without_a_profiler(case, monkeypatch):
+    made = []
+    monkeypatch.setattr(trace, "_RecordFunctionFast", lambda name: made.append(name))
+    call, _, _ = CASES[case]("cpu")
+    before = dict(trace.counts)
+    call()
+    assert made == [] and trace.counts == before
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_a_thread_the_profiler_does_not_record_counts_nothing(case):
+    call, _, _ = CASES[case]("cpu")
+    failed = []
+
+    def work():
+        try:
+            call()
+        except Exception as e:  # noqa: BLE001 - raised again below, on the test's thread
+            failed.append(e)
+
+    def on_a_thread():
+        t = threading.Thread(target=work)
+        t.start()
+        t.join()
+
+    _, prof, gained = recorded(on_a_thread)
+    assert not failed, failed
+    assert program_spans(prof) == [] and gained == {}
+
+
+def test_spans_and_counts_leave_results_alone():
+    """The same bytes and samples with the profiler on and off."""
+    call, _, _ = encode_batch_case("cpu")
+    assert recorded(call)[0] == call()
+    call, _, _ = push_case("cpu")
+    assert np.array_equal(recorded(call)[0], call())
