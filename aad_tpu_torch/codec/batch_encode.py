@@ -8,21 +8,41 @@ different lengths share the launches through per-(block, stream) valid
 counts: a stream's blocks past its end encode zeros and are dropped at
 assembly, so each stream's bytes equal its solo encode.
 
-The pipeline:
+The pipeline, for a pile long enough to run in chunks (``_OVERLAP_MIN_BLOCKS``
+blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
+``codec.transfer.Transfer``), on the caller's thread:
 
-    S streams (C, n_s) --host-----> shape and int16-range checks, file headers;
-                                    the (S, C, B * nspb) int16 pile, zero past
-                                    each stream's end, in pinned memory
-                       --H2D------> once
-                       --device---> codec.encoder.encode_blocks, the core
-                                    that a solo encode runs on lanes (C,),
-                                    here on (S, C) lanes: kernel 3 (for a
-                                    long pile in chunks of 64 blocks, kernel
-                                    4 rebuilding the carry between them),
-                                    block headers + packed units as
-                                    (S, B, block_size) bytes
-                       --D2H------> once; each stream's first nb_s blocks,
-                                    its last one cut to its valid units
+    host:    check | stage 0 | stage 1 | stage 2 | ... | wait 0, bytes | wait 1, bytes | ...
+    upload:            | up 0    | up 1    | up 2 ...
+    device:                | chunk 0 ......| chunk 1 ......| chunk 2 ......| ...
+    download:                              | down 0        | down 1        | ...
+
+* check: shapes and the int16 range, the file headers;
+* stage k: each stream's samples of chunk k's 64 blocks, zero past its end,
+  into the pinned block-major (B, S, C, nspb) int16 pile, where a chunk is a
+  contiguous slice; chunk k + 1 is laid out only once chunk k's upload and
+  launches are queued, so the host's copy runs while the device runs;
+* device: chunk k's kernel 3 launch on (S, C) lanes, kernel 4 rebuilding
+  the carry for the next chunk, the block headers, and the chunk's bytes
+  made stream-major, (S, count * block_size);
+* down k: those bytes in one copy into chunk k's own region of the pinned
+  output (S * B * block_size bytes, chunk after chunk), then an event;
+* once the last chunk is launched, the host walks the chunks in order,
+  waits for chunk k's event (``aad.encode_batch.wait``), and builds the byte
+  strings of the streams whose last block lies in chunk k, each in one copy
+  (its file header joined with its rows of chunks 0 to k, the last one cut):
+  those ending in early chunks are built while the device still runs the
+  later ones.
+
+A shorter pile, or ``parallel_blocks=True``, is one launch: the whole pile
+staged stream-major (each stream's samples one run, which lays out a pile
+of many streams faster than the block-major layout), one upload, one
+launch, one download, then the byte strings.
+The counters ``pile_chunks``,
+``pile_chunks_staged_ahead`` (chunks laid out while an earlier chunk was
+queued on the device), ``pile_streams`` and
+``pile_streams_assembled_early`` (byte strings built before the host
+waited for the last chunk) say how often the overlap engages.
 
 Not carried over from ``aad_tpu.codec.batch_encode``: the folded c-major
 wire32 lane layout, a TPU tiling concern (a thread is a lane here, so
@@ -36,6 +56,7 @@ does. Such input is outside the contract of both packages, and
 
 from __future__ import annotations
 
+import bisect
 from typing import Sequence
 
 import numpy as np
@@ -46,8 +67,9 @@ from ..format.geometry import num_blocks_for
 from ..format.header import encode_header
 from ..utils.trace import count, span
 from .device import resolve_device
-from .encoder import EncodeConfig, as_int16, encode_blocks, payload_size, resolve_engine
+from .encoder import EncodeConfig, as_int16, encode_blocks, payload_size, resolve_engine, runs_in_chunks
 from .result import InvalidArgumentError
+from .transfer import Transfer
 
 
 def encode_batch(
@@ -94,41 +116,114 @@ def encode_batch(
 
         device = resolve_device(device)
         geo = config.geometry()
-        nspb = geo.num_samples_per_block
+        nspb, bs = geo.num_samples_per_block, geo.block_size
         lengths = [pcm.shape[1] for pcm in arrays]
         S = len(arrays)
-        B = max(num_blocks_for(n, nspb) for n in lengths)
-        pile = _stage(arrays, B * nspb, device)
-        # valid samples per (block, stream), broadcast over the channels
-        starts = torch.arange(B, device=device)[:, None] * nspb
-        valid = torch.clamp(torch.tensor(lengths, device=device)[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
-        blocks = pile.reshape(S, nch, B, nspb).permute(2, 0, 1, 3)  # (B, S, C, nspb), a view
-        out = encode_blocks(blocks, valid, config, parallel_blocks, parallel_chunk_blocks, parallel_warm_passes)
+        nbs = [num_blocks_for(n, nspb) for n in lengths]
+        B = max(nbs)
+        if runs_in_chunks(B, parallel_blocks):
+            host, wait, chunks = _encode_in_chunks(arrays, config, B, device)
+        else:
+            host = _encode_at_once(arrays, config, B, device, parallel_blocks, parallel_chunk_blocks,
+                                   parallel_warm_passes)
+            wait, chunks = (lambda k: None), [(0, B)]
+        count("pile_streams", S)
+        # each chunk's (S, n * block_size) bytes, and the streams whose last block lies in it
+        flat = host.numpy()
+        rows = [flat[S * b0 * bs : S * (b0 + n) * bs].reshape(S, n * bs) for b0, n in chunks]
+        ends = [b0 + n for b0, n in chunks]
+        ending = [[] for _ in chunks]
+        for s, nb in enumerate(nbs):
+            ending[bisect.bisect_left(ends, nb)].append(s)
+        out = [b""] * S
+        for k, done in enumerate(ending):
+            with span("aad.encode_batch.wait"):
+                wait(k)
+            with span("aad.encode_batch.assemble"):
+                if k < len(chunks) - 1:
+                    count("pile_streams_assembled_early", len(done))
+                before = chunks[k][0] * bs  # a stream's payload bytes in chunks 0..k-1
+                for s in done:
+                    # one copy: the file header, the stream's rows of chunks 0..k-1, its cut of chunk k
+                    out[s] = b"".join([file_headers[s], *(r[s] for r in rows[:k]),
+                                       rows[k][s, : payload_size(geo, lengths[s]) - before]])
+        return out
 
-        # one D2H, into pinned memory: a pageable copy of a pile's blocks runs
-        # far slower (PERF.md)
-        rows = out.transpose(0, 1).contiguous()  # (S, B, block_size)
-        host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=device.type == "cuda")
-        with span("aad.d2h"):
-            count("d2h_bytes", rows.nbytes)
-            rows = host.copy_(rows).numpy()
-        with span("aad.encode_batch.assemble"):
-            return [head + memoryview(rows[s].reshape(-1)[: payload_size(geo, n)])
-                    for s, (head, n) in enumerate(zip(file_headers, lengths))]
+
+def _valid(arrays: list[np.ndarray], num_blocks: int, nspb: int, device: torch.device) -> torch.Tensor:
+    """Valid samples per (block, stream), (B, S, 1) int32 on ``device``,
+    broadcast over the channels."""
+    starts = torch.arange(num_blocks, device=device)[:, None] * nspb
+    lengths = torch.tensor([pcm.shape[1] for pcm in arrays], device=device)
+    return torch.clamp(lengths[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
 
 
-def _stage(arrays: list[np.ndarray], width: int, device: torch.device) -> torch.Tensor:
-    """The (S, C, width) int16 pile on ``device``, each stream zero past its
-    end: laid out on the host in one pinned buffer and copied at once (a
-    pageable copy a stream costs the host more than the whole pile's copy;
-    PERF.md)."""
+def _encode_in_chunks(arrays: list[np.ndarray], config: EncodeConfig, B: int, device: torch.device):
+    """A pile that runs in chunks, each staged while the device runs the one
+    before, its bytes brought down into a flat pinned buffer (``encode_blocks``'
+    pile output). Returns (the buffer, a function that waits for chunk k's
+    bytes, the chunks' (first block, blocks) in launch order)."""
+    geo = config.geometry()
+    nspb, S = geo.num_samples_per_block, len(arrays)
+    valid = _valid(arrays, B, nspb, device)
+    xfer = Transfer(device)
+    # block-major, so that a chunk is a contiguous slice; pinned, and torch's to reuse across calls
+    pile = xfer.host((B, S, config.num_channels, nspb), torch.int16)
+    pile_np = pile.numpy()
+    host = xfer.host((S * B * geo.block_size,), torch.uint8)
+    chunks = []
+
+    def stage(b0: int, n: int) -> None:
+        with span("aad.encode_batch.stage"):
+            count("pile_chunks", 1)
+            count("pile_chunks_staged_ahead", int(b0 > 0))
+            _stage_blocks(arrays, pile_np[b0 : b0 + n], b0 * nspb)
+        chunks.append((b0, n))
+
+    encode_blocks(pile, valid, config, transfer=xfer, out=host, stage=stage)
+    return host, xfer.wait, chunks
+
+
+def _encode_at_once(arrays: list[np.ndarray], config: EncodeConfig, B: int, device: torch.device,
+                    parallel_blocks: bool, parallel_chunk_blocks: int, parallel_warm_passes: int) -> torch.Tensor:
+    """A pile of one launch: staged whole, one copy up, one launch, its bytes
+    down in one copy. Returns them, (S * B * block_size,) in pinned memory,
+    each stream's blocks a run."""
+    geo = config.geometry()
+    nspb, S = geo.num_samples_per_block, len(arrays)
     with span("aad.encode_batch.stage"):
-        staged = torch.empty((len(arrays), arrays[0].shape[0], width), dtype=torch.int16,
-                             pin_memory=device.type == "cuda")
+        count("pile_chunks", 1)
+        # stream-major: each stream's samples one run (a block-major layout
+        # scatters them, and costs a pile of thousands of streams a fifth more)
+        staged = torch.empty((S, config.num_channels, B * nspb), dtype=torch.int16, pin_memory=device.type == "cuda")
         view = staged.numpy()
         for s, pcm in enumerate(arrays):
             view[s, :, : pcm.shape[1]] = pcm
             view[s, :, pcm.shape[1] :] = 0
         with span("aad.h2d"):
             count("h2d_bytes", staged.nbytes)
-            return staged.to(device, non_blocking=True)
+            pile = staged.to(device, non_blocking=True)
+    blocks = pile.view(S, config.num_channels, B, nspb).permute(2, 0, 1, 3)  # (B, S, C, nspb)
+    rows = encode_blocks(blocks, _valid(arrays, B, nspb, device), config, parallel_blocks, parallel_chunk_blocks,
+                         parallel_warm_passes)
+    rows = rows.transpose(0, 1).contiguous()  # (S, B, block_size)
+    host = torch.empty(rows.numel(), dtype=torch.uint8, pin_memory=device.type == "cuda")
+    with span("aad.d2h"):
+        count("d2h_bytes", rows.nbytes)
+        host.view(rows.shape).copy_(rows)
+    return host
+
+
+def _stage_blocks(arrays: list[np.ndarray], dst: np.ndarray, s0: int) -> None:
+    """Each stream's samples from ``s0`` on into ``dst``, its (n, S, C, nspb)
+    int16 blocks, zero past the stream's end."""
+    n, _, C, nspb = dst.shape
+    for s, pcm in enumerate(arrays):
+        blocks = dst[:, s]
+        m = max(0, min(pcm.shape[1] - s0, n * nspb))  # the stream's samples in these blocks
+        full, r = divmod(m, nspb)
+        blocks[:full] = pcm[:, s0 : s0 + full * nspb].reshape(C, full, nspb).transpose(1, 0, 2)
+        if full < n:
+            blocks[full, :, :r] = pcm[:, s0 + full * nspb : s0 + m]
+            blocks[full, :, r:] = 0
+            blocks[full + 1 :] = 0

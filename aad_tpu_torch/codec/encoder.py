@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -205,6 +206,13 @@ def _block_bytes(headers: BlockHeaderFields, data: torch.Tensor, geo: BlockGeome
     return torch.cat([build_block_headers(states, headers.shift, geo), data], dim=-1)
 
 
+def runs_in_chunks(num_blocks: int, parallel_blocks: bool) -> bool:
+    """Whether :func:`encode_blocks` runs ``num_blocks`` blocks in chunks
+    that chain the carry (the sequential mode from ``_OVERLAP_MIN_BLOCKS``
+    blocks on), rather than in one launch."""
+    return not parallel_blocks and num_blocks >= _OVERLAP_MIN_BLOCKS
+
+
 def encode_blocks(
     blocks: torch.Tensor,
     valid: torch.Tensor,
@@ -214,6 +222,7 @@ def encode_blocks(
     parallel_warm_passes: int = 0,
     transfer: Transfer | None = None,
     out: torch.Tensor | None = None,
+    stage: Callable[[int, int], None] | None = None,
 ) -> torch.Tensor:
     """The encode of every lane's blocks: (B, *streams, C, nspb) int16 LR
     blocks, zero past each lane's end, and ``valid`` samples per (block,
@@ -236,7 +245,15 @@ def encode_blocks(
     tensor of the result's shape, which is returned (whole after
     ``transfer.finish()``): each chunk goes up on the upload stream while
     kernel 3 runs the chunk before, and its bytes come down as soon as they
-    are assembled; one launch goes up and comes down in one piece.
+    are assembled, in one ``transfer.download`` call a chunk; one launch
+    goes up and comes down in one piece. A pile's ``out`` (blocks (B, S, C,
+    nspb)) is flat, S * B * block_size bytes, chunk after chunk: the bytes
+    of blocks [b0, b0 + count) are made stream-major on the device and come
+    down in one copy, as (S, count * block_size), to bytes
+    [S * b0 * block_size, S * (b0 + count) * block_size).
+    ``stage(b0, count)``, where given, fills blocks [b0, b0 + count) of the
+    host tensor just before they go up, so that the host lays out a chunk
+    while the device runs the chunks before it.
     ``valid`` lies on ``transfer.device``.
     """
     geo = config.geometry()
@@ -249,24 +266,33 @@ def encode_blocks(
         # (reference: src/aad_encoder.c:596-603)
         return lr_to_ms(x).to(torch.int16) if config.ch_process_method == CH_PROCESS_MS else x
 
-    def up(x: torch.Tensor) -> torch.Tensor:
-        return x if transfer is None else transfer.upload(x)
+    def up(b0: int, count: int) -> torch.Tensor:
+        if transfer is None:
+            return blocks[b0 : b0 + count]
+        if stage is not None:
+            stage(b0, count)
+        return transfer.upload(blocks[b0 : b0 + count])
 
     def put(rows: torch.Tensor, b0: int) -> None:
+        count = rows.shape[0]
         if transfer is None:
-            out[b0 : b0 + rows.shape[0]] = rows
+            out[b0 : b0 + count] = rows
+        elif rows.dim() == 3:  # a pile's (count, S, block_size), stream-major
+            S, bs = rows.shape[1:]
+            transfer.download(rows.transpose(0, 1).reshape(S, count * bs),
+                              out[S * b0 * bs : S * (b0 + count) * bs].view(S, count * bs))
         else:
-            transfer.download(rows, out[b0 : b0 + rows.shape[0]])
+            transfer.download(rows, out[b0 : b0 + count])
 
     B = blocks.shape[0]
-    if parallel_blocks or B < _OVERLAP_MIN_BLOCKS:
+    if not runs_in_chunks(B, parallel_blocks):
         if parallel_blocks:
             rows = _block_bytes(*encode_blocks_parallel(
-                ms(up(blocks)), valid, bps, trials,
+                ms(up(0, B)), valid, bps, trials,
                 chunk_blocks=parallel_chunk_blocks, warm_passes=parallel_warm_passes, stream=stream,
             ), geo)
         else:
-            rows = _block_bytes(*stream(ms(up(blocks)), valid, bps, trials, need_carry=False)[:2], geo)
+            rows = _block_bytes(*stream(ms(up(0, B)), valid, bps, trials, need_carry=False)[:2], geo)
         if transfer is None:
             return rows
         put(rows, 0)
@@ -279,7 +305,7 @@ def encode_blocks(
     for b0 in range(0, B, _OVERLAP_CHUNK_BLOCKS):
         count = min(_OVERLAP_CHUNK_BLOCKS, B - b0)
         headers, data, carry = stream(
-            ms(up(blocks[b0 : b0 + count])), valid[b0 : b0 + count], bps, trials,
+            ms(up(b0, count)), valid[b0 : b0 + count], bps, trials,
             carry=carry, blocks_before=b0, need_carry=b0 + count < B,
         )
         put(_block_bytes(headers, data, geo), b0)

@@ -63,6 +63,8 @@ class Transfer:
             self.compute = torch.cuda.current_stream(device)
             self.up = torch.cuda.Stream(device)
             self.down = torch.cuda.Stream(device)
+        # on a card, an event a download call, recorded after its copies
+        self.landed: list = []
 
     def host(self, shape, dtype: torch.dtype) -> torch.Tensor:
         """An uninitialised host tensor, pinned when the device is a card.
@@ -88,7 +90,7 @@ class Transfer:
         """Copy ``dev`` into ``host`` (same shape; ``host`` contiguous, or 2-D
         with contiguous rows, copied a row at a time) once the compute
         stream's work so far is done. ``host`` holds the values after
-        :meth:`finish`."""
+        :meth:`finish`, or after :meth:`wait` of this call's index."""
         pairs = [(dev, host)] if host.is_contiguous() else list(zip(dev, host))
         with span("aad.d2h"):
             count("d2h_bytes", host.nbytes)
@@ -100,7 +102,14 @@ class Transfer:
             with torch.cuda.stream(self.down):
                 for d, h in pairs:
                     h.copy_(d, non_blocking=True)
+            self.landed.append(self.down.record_event())
         dev.record_stream(self.down)
+
+    def wait(self, k: int) -> None:
+        """Wait until the copies of the ``k``-th :meth:`download` call (from
+        0, in call order) have landed; on the CPU they already have."""
+        if self.cuda:
+            self.landed[k].synchronize()
 
     def finish(self) -> None:
         """Wait until every download has landed."""

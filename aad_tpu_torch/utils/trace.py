@@ -20,8 +20,10 @@ with ``aad.``:
   ``aad.encode``, ``aad.encode_streams_sharded``,
   ``aad.decode_blocks_sharded``, ``aad.encode_blocks_parallel_sharded``;
 * host framing and staging: ``aad.encode_batch.check`` (shapes, int16
-  range, file headers), ``aad.encode_batch.stage`` (the pinned pile),
-  ``aad.encode_batch.assemble`` (the byte strings), ``aad.push.frame`` (the
+  range, file headers), ``aad.encode_batch.stage`` (a chunk of the pinned
+  pile), ``aad.encode_batch.wait`` (the host's wait for a chunk's bytes),
+  ``aad.encode_batch.assemble`` (the byte strings of the streams that end
+  in that chunk), ``aad.push.frame`` (the
   byte queue and the block rows of a push), ``aad.frame.blocks`` (the block
   rows and their header parse, ``Decoder._decode_prefix``; a
   ``decode_batch``'s per-stream rows), ``aad.decode.pcm`` (the lane reorders
@@ -31,6 +33,11 @@ with ``aad.``:
   ``h2d_bytes`` and ``d2h_bytes`` (on a CPU device, where the copy is none,
   the bytes it would move); a synchronous copy's span holds the host's wait
   for the device;
+* ``encode_batch``'s pile counters: ``pile_chunks`` (chunks staged),
+  ``pile_chunks_staged_ahead`` (of them, those staged while an earlier
+  chunk was queued on the device), ``pile_streams`` (streams encoded) and
+  ``pile_streams_assembled_early`` (of them, those whose byte strings were
+  built before the host waited for the pile's last chunk);
 * kernel launches, on a card only: ``aad.launch.decode_lanes``,
   ``aad.launch.stepsize_probe``, ``aad.launch.encode_stream``,
   ``aad.launch.encode_pass``, ``aad.launch.lms_lanes``.

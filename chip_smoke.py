@@ -1548,7 +1548,7 @@ def batch_encode_phase(cuda, card, main) -> dict:
     encodes, exactness cases against the CPU, and times."""
     import torch
     import aad_tpu_torch as at
-    from aad_tpu_torch.codec.batch_encode import _stage
+    from aad_tpu_torch.codec.batch_encode import _stage_blocks
     from aad_tpu_torch.codec.encoder import _OVERLAP_CHUNK_BLOCKS, _OVERLAP_MIN_BLOCKS
     from aad_tpu_torch.ops import encode_pass as ep, fused_encode as fe
     from aad_tpu_torch.ops.transitions import CodecState
@@ -1588,7 +1588,9 @@ def batch_encode_phase(cuda, card, main) -> dict:
     # last block at 4,096 lanes; then kernel 3 on chunk 1 from that carry
     cb, L = _OVERLAP_CHUNK_BLOCKS, 2 * PILE_STREAMS
     bps, trials = cfg.bits_per_sample, cfg.num_encode_trials
-    blocks = _stage(pile, nblocks * nspb, cuda).reshape(PILE_STREAMS, 2, nblocks, nspb).permute(2, 0, 1, 3)
+    staged = np.empty((nblocks, PILE_STREAMS, 2, nspb), np.int16)
+    _stage_blocks(pile, staged, 0)
+    blocks = torch.from_numpy(staged).to(cuda)  # (B, S, C, nspb), as encode_batch stages it
     starts = torch.arange(nblocks, device=cuda)[:, None] * nspb
     valid = torch.clamp(torch.as_tensor(lengths, device=cuda)[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
     head, _, carry = fe.encode_stream(blocks[:cb], valid[:cb], bps, trials, need_carry=True)
@@ -1821,7 +1823,7 @@ def sharding_phase(cuda, card, bench, main) -> dict:
     launches of the checked calls by kernel."""
     import torch
     import aad_tpu_torch as at
-    from aad_tpu_torch.codec.batch_encode import _stage
+    from aad_tpu_torch.codec.batch_encode import _stage_blocks
     from aad_tpu_torch.codec.encoder import _block_bytes, _pad_to_blocks, payload_size
     from aad_tpu_torch.ops import fused_decode as fd, fused_encode as fe, lms
     from aad_tpu_torch.ops.bitpack import pack_codes
@@ -1903,7 +1905,9 @@ def sharding_phase(cuda, card, bench, main) -> dict:
     n = PILE_TIME_SECONDS * RATE
     two = pile_streams(pcm, [n] * max(PILE_SIZES), SEED + 20)
     S, nb = len(two), -(-n // nspb)
-    pile = _stage(two, nb * nspb, cuda).reshape(S, 2, nb, nspb).transpose(1, 2)  # (S, B, C, nspb) int16
+    staged = np.empty((nb, S, 2, nspb), np.int16)
+    _stage_blocks(two, staged, 0)
+    pile = torch.from_numpy(staged).to(cuda).transpose(0, 1)  # (S, B, C, nspb) int16
     valid = torch.clamp(n - torch.arange(nb, device=cuda) * nspb, 0, nspb).to(torch.int32).expand(S, nb)
     bps, trials = cfg.bits_per_sample, cfg.num_encode_trials
     uh, uc, _ = fe.encode_stream(pile.transpose(0, 1), valid.t()[..., None], bps, trials, need_carry=False)

@@ -5,8 +5,9 @@ axis, so each stream's bytes must equal its solo port encode and
 ``aad_tpu``'s batch encode (scan engine): ragged lengths (a stream shorter
 than a block, a last block with fewer than four samples), mid/side, mono,
 bps 2/3/4, trials 0-2, the carry-chained chunks of a long pile (constants
-shrunk so that a stream ends in an earlier chunk than the others), and the
-block-parallel mode with chunks and warm passes. PCM comes from numpy
+shrunk so that streams end in different chunks: the pile is staged and its
+byte strings cut a chunk at a time), and the block-parallel mode with
+chunks and warm passes. PCM comes from numpy
 seeds; streams are a few blocks of small geometries, since the plain encode
 engine is slow.
 """
@@ -69,6 +70,25 @@ def test_long_pile_chains_the_carry_across_chunks(monkeypatch, ms, trials):
     nspb = _configs(2, 4, 96)[1].geometry().num_samples_per_block
     lengths = [nspb + 5, 7 * nspb - 11, 4 * nspb, 6 * nspb + 3]
     _check(_pile(3 + trials, 2, lengths), 2, 4, 96, ms, trials)
+
+
+@pytest.mark.parametrize("blocks,ms,trials,parallel", [
+    ([1, 6, 3], False, 0, False),  # a stream of one block: it ends in chunk 0 and is cut first
+    ([7, 7, 7], True, 2, False),  # every stream ends in the last chunk
+    ([5, 2, 4], False, 1, False),  # a ragged last chunk of one block
+    ([3, 8, 6, 1], True, 1, False),  # streams end in chunks 1, 3, 2 and 0, out of input order
+    ([1, 6], False, 2, True),  # block-parallel: one launch however long
+])
+def test_staged_pile_cuts_each_stream_in_its_last_chunk(monkeypatch, blocks, ms, trials, parallel):
+    """Constants shrunk so that the pile runs in chunks of 2 blocks, staged a
+    chunk at a time and each stream's bytes cut once the chunk with its last
+    block has come down: the results in input order, each equal to its solo
+    encode and to aad_tpu's pile."""
+    monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
+    monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
+    nspb = _configs(2, 4, 96)[1].geometry().num_samples_per_block
+    lengths = [(nb - 1) * nspb + 1 + (7 * s + 3) % nspb for s, nb in enumerate(blocks)]
+    _check(_pile(sum(blocks) + trials, 2, lengths), 2, 4, 96, ms, trials, parallel_blocks=parallel)
 
 
 @pytest.mark.parametrize("chunk_blocks,warm_passes", [(1, 0), (2, 1), (3, 0)])

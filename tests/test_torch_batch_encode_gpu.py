@@ -1,0 +1,65 @@
+"""encode_batch on the card (needs a GPU): a pile long enough to run in
+chunks, staged a chunk at a time while kernel 3 runs the chunks before, its
+streams' byte strings cut as the chunk with each one's last block lands.
+
+At the chunk constants of ``codec.encoder`` (64 blocks a chunk from 128
+blocks on), a pile whose streams end in three different chunks must equal
+each stream's solo ``encode()`` on the card, in input order; under the
+profiler, every chunk but the first is staged while an earlier one is
+queued (``pile_chunks_staged_ahead`` = chunks - 1), and the other pile
+counters equal what the lengths imply. Imports no jax:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_batch_encode_gpu.py -q
+
+Without a card every test here skips.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity
+
+import aad_tpu_torch
+from aad_tpu_torch import EncodeConfig
+from test_torch_trace import parent_of, pile_counts, program_spans, recorded
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _pile(seed: int, lengths: list) -> list:
+    rng = np.random.default_rng(seed)
+    return [(9000 * np.sin(np.arange(n) / (5.0 + 40 * rng.random((2, 1)))) + rng.normal(0, 900, (2, n)))
+            .astype(np.int16) for n in lengths]
+
+
+@pytest.mark.parametrize("ms,trials", [(0, 2), (1, 1)])
+def test_staged_pile_matches_solo_encodes(cuda, ms, trials):
+    """Streams of 30, 150, 100, 1 and 129 blocks: chunks [0, 64), [64, 128),
+    [128, 150); they end in chunks 0, 2, 1, 0 and 2."""
+    cfg = EncodeConfig(num_channels=2, sampling_rate=48000, bits_per_sample=4, max_block_size=1024,
+                       ch_process_method=ms, num_encode_trials=trials)
+    nspb = cfg.geometry().num_samples_per_block
+    nbs = [30, 150, 100, 1, 129]
+    lengths = [(nb - 1) * nspb + 1 + (97 * s) % nspb for s, nb in enumerate(nbs)]
+    pile = _pile(ms * 10 + trials, lengths)
+    call = lambda: aad_tpu_torch.encode_batch(pile, cfg, device=cuda)  # noqa: E731
+    want = [aad_tpu_torch.encode(pcm, cfg, device=cuda) for pcm in pile]
+    assert call() == want
+    got, prof, gained = recorded(lambda: (call(), torch.cuda.synchronize(cuda))[0],
+                                 (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    assert got == want
+    counts = pile_counts(nbs)
+    assert counts["pile_chunks"] == 3
+    assert {k: gained.get(k, 0) for k in counts} == counts
+    spans = program_spans(prof)
+    waits = [parent_of(e, spans) for e in spans if e.name() == "aad.encode_batch.wait"]
+    assert waits == ["aad.encode_batch"] * 3

@@ -25,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import aad_tpu_torch
 from aad_tpu_torch import EncodeConfig
+from aad_tpu_torch.codec import encoder as enc_mod
 from aad_tpu_torch.parallel import sharded as ts
 from aad_tpu_torch.utils import trace
 
@@ -51,9 +52,12 @@ def encode_batch_case(device):
         ("aad.encode_batch.stage", "aad.encode_batch"),
         ("aad.h2d", "aad.encode_batch.stage"),
         ("aad.d2h", "aad.encode_batch"),
+        ("aad.encode_batch.wait", "aad.encode_batch"),
         ("aad.encode_batch.assemble", "aad.encode_batch"),
     ]
-    counts = {"h2d_bytes": S * 2 * B * NSPB * 2, "d2h_bytes": S * B * GEO.block_size}
+    # one launch: one chunk, staged with nothing queued before it
+    counts = {"h2d_bytes": S * 2 * B * NSPB * 2, "d2h_bytes": S * B * GEO.block_size,
+              "pile_chunks": 1, "pile_streams": S}
     return lambda: aad_tpu_torch.encode_batch(pile, CFG, device=device), spans, counts
 
 
@@ -163,6 +167,48 @@ def test_a_thread_the_profiler_does_not_record_counts_nothing(case):
     _, prof, gained = recorded(on_a_thread)
     assert not failed, failed
     assert program_spans(prof) == [] and gained == {}
+
+
+def pile_counts(nbs: list, parallel: bool = False) -> dict:
+    """The pile counters that an encode_batch of streams of ``nbs`` blocks
+    adds, from the chunk constants: a sequential pile of
+    ``_OVERLAP_MIN_BLOCKS`` blocks or more runs in chunks, every chunk but
+    the first staged while an earlier one is queued, and the streams that
+    end before the last chunk are assembled early; any other pile is one
+    launch."""
+    B, step = max(nbs), enc_mod._OVERLAP_CHUNK_BLOCKS
+    chunks = -(-B // step) if not parallel and B >= enc_mod._OVERLAP_MIN_BLOCKS else 1
+    return {"pile_chunks": chunks, "pile_chunks_staged_ahead": chunks - 1, "pile_streams": len(nbs),
+            "pile_streams_assembled_early": sum(nb <= (chunks - 1) * step for nb in nbs) if chunks > 1 else 0}
+
+
+def pile_of(nbs: list) -> list:
+    """Streams of ``nbs`` blocks each, the last block of each ragged."""
+    return [_pcm(10 + s, (nb - 1) * NSPB + 1 + (s * 7) % NSPB) for s, nb in enumerate(nbs)]
+
+
+@pytest.mark.parametrize("nbs,parallel", [
+    ([1, 3, 7], False),  # chunks [0, 2) [2, 4) [4, 6) [6, 7): streams end in chunks 0, 1 and 3
+    ([7, 7, 8], False),  # every stream in the last chunk
+    ([2, 6, 5, 4], False),  # chunks of 2, the last one whole; two streams early
+    ([1, 2], False),  # shorter than _OVERLAP_MIN_BLOCKS: one launch
+    ([1, 7], True),  # block-parallel: one launch
+])
+def test_pile_counters_follow_the_chunks(monkeypatch, nbs, parallel):
+    """With the chunk constants shrunk, the pile counters equal what the
+    streams' lengths imply, and the pile waits once a chunk, each wait and
+    stage nested in ``aad.encode_batch``."""
+    monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
+    monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
+    pile = pile_of(nbs)
+    out, prof, gained = recorded(lambda: aad_tpu_torch.encode_batch(pile, CFG, device="cpu", parallel_blocks=parallel))
+    want = pile_counts(nbs, parallel)
+    assert {k: gained.get(k, 0) for k in want} == want
+    spans = program_spans(prof)
+    for name in ("aad.encode_batch.stage", "aad.encode_batch.wait", "aad.encode_batch.assemble"):
+        found = [parent_of(e, spans) for e in spans if e.name() == name]
+        assert found == ["aad.encode_batch"] * want["pile_chunks"], name
+    assert out == aad_tpu_torch.encode_batch(pile, CFG, device="cpu", parallel_blocks=parallel)
 
 
 def test_spans_and_counts_leave_results_alone():

@@ -59,7 +59,7 @@ def _after(spans: list, name: str, extra: list) -> list:
 def test_encode_batch_counts_the_pile_and_marks_its_launch(cuda):
     call, spans, counts = encode_batch_case(cuda)
     prof, gained, launched = _on_card(call, cuda)
-    assert gained == counts  # h2d_bytes: the pile's (S, C, B * nspb) int16
+    assert gained == counts  # h2d_bytes: the pile's (S, C, B * nspb) int16; one chunk, none ahead
     assert launched == {fused_encode.STREAM_KERNEL: 1}
     assert_documented(prof, _after(spans, "aad.h2d", [("aad.launch.encode_stream", "aad.encode_batch")]))
 
