@@ -37,12 +37,16 @@ blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
 A shorter pile, or ``parallel_blocks=True``, is one launch: the whole pile
 staged stream-major (each stream's samples one run, which lays out a pile
 of many streams faster than the block-major layout), one upload, one
-launch, one download, then the byte strings.
+launch, one download queued behind it into pinned memory, then the host's
+wait for that download's event (``aad.encode_batch.wait``, as a chunk's)
+and the byte strings.
 The counters ``pile_chunks``,
 ``pile_chunks_staged_ahead`` (chunks laid out while an earlier chunk was
 queued on the device), ``pile_streams`` and
 ``pile_streams_assembled_early`` (byte strings built before the host
-waited for the last chunk) say how often the overlap engages.
+waited for the last chunk) say how often the overlap engages;
+``pile_pad_bytes`` counts the zeros staged past the streams' ends, in
+either layout.
 
 Not carried over from ``aad_tpu.codec.batch_encode``: the folded c-major
 wire32 lane layout, a TPU tiling concern (a thread is a lane here, so
@@ -124,10 +128,11 @@ def encode_batch(
         if runs_in_chunks(B, parallel_blocks):
             host, wait, chunks = _encode_in_chunks(arrays, config, B, device)
         else:
-            host = _encode_at_once(arrays, config, B, device, parallel_blocks, parallel_chunk_blocks,
-                                   parallel_warm_passes)
-            wait, chunks = (lambda k: None), [(0, B)]
+            host, wait = _encode_at_once(arrays, config, B, device, parallel_blocks, parallel_chunk_blocks,
+                                         parallel_warm_passes)
+            chunks = [(0, B)]
         count("pile_streams", S)
+        count("pile_pad_bytes", (S * B * nspb - sum(lengths)) * nch * 2)  # the pile's upload less its samples
         # each chunk's (S, n * block_size) bytes, and the streams whose last block lies in it
         flat = host.numpy()
         rows = [flat[S * b0 * bs : S * (b0 + n) * bs].reshape(S, n * bs) for b0, n in chunks]
@@ -185,10 +190,11 @@ def _encode_in_chunks(arrays: list[np.ndarray], config: EncodeConfig, B: int, de
 
 
 def _encode_at_once(arrays: list[np.ndarray], config: EncodeConfig, B: int, device: torch.device,
-                    parallel_blocks: bool, parallel_chunk_blocks: int, parallel_warm_passes: int) -> torch.Tensor:
+                    parallel_blocks: bool, parallel_chunk_blocks: int, parallel_warm_passes: int):
     """A pile of one launch: staged whole, one copy up, one launch, its bytes
-    down in one copy. Returns them, (S * B * block_size,) in pinned memory,
-    each stream's blocks a run."""
+    down in one copy queued behind it. Returns (a flat pinned buffer, S * B *
+    block_size bytes, each stream's blocks a run; a function that waits for
+    the copy down, as ``_encode_in_chunks``' does for chunk k)."""
     geo = config.geometry()
     nspb, S = geo.num_samples_per_block, len(arrays)
     with span("aad.encode_batch.stage"):
@@ -210,8 +216,11 @@ def _encode_at_once(arrays: list[np.ndarray], config: EncodeConfig, B: int, devi
     host = torch.empty(rows.numel(), dtype=torch.uint8, pin_memory=device.type == "cuda")
     with span("aad.d2h"):
         count("d2h_bytes", rows.nbytes)
-        host.view(rows.shape).copy_(rows)
-    return host
+        host.view(rows.shape).copy_(rows, non_blocking=True)
+    if device.type != "cuda":
+        return host, lambda k: None  # the copy has landed
+    landed = torch.cuda.current_stream(device).record_event()
+    return host, lambda k: landed.synchronize()
 
 
 def _stage_blocks(arrays: list[np.ndarray], dst: np.ndarray, s0: int) -> None:

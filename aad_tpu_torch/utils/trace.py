@@ -21,7 +21,8 @@ with ``aad.``:
   ``aad.decode_blocks_sharded``, ``aad.encode_blocks_parallel_sharded``;
 * host framing and staging: ``aad.encode_batch.check`` (shapes, int16
   range, file headers), ``aad.encode_batch.stage`` (a chunk of the pinned
-  pile), ``aad.encode_batch.wait`` (the host's wait for a chunk's bytes),
+  pile), ``aad.encode_batch.wait`` (the host's wait for a chunk's bytes, or for
+  a pile of one launch, its kernel and its one copy down),
   ``aad.encode_batch.assemble`` (the byte strings of the streams that end
   in that chunk), ``aad.push.frame`` (the
   byte queue and the block rows of a push), ``aad.frame.blocks`` (the block
@@ -35,9 +36,10 @@ with ``aad.``:
   for the device;
 * ``encode_batch``'s pile counters: ``pile_chunks`` (chunks staged),
   ``pile_chunks_staged_ahead`` (of them, those staged while an earlier
-  chunk was queued on the device), ``pile_streams`` (streams encoded) and
+  chunk was queued on the device), ``pile_streams`` (streams encoded),
   ``pile_streams_assembled_early`` (of them, those whose byte strings were
-  built before the host waited for the pile's last chunk);
+  built before the host waited for the pile's last chunk) and
+  ``pile_pad_bytes`` (the zeros staged past the streams' ends);
 * kernel launches, on a card only: ``aad.launch.decode_lanes``,
   ``aad.launch.stepsize_probe``, ``aad.launch.encode_stream``,
   ``aad.launch.encode_pass``, ``aad.launch.lms_lanes``.

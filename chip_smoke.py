@@ -640,16 +640,18 @@ def encode_kernel_checks(cuda) -> tuple[int, int]:
     # packed: each block's data region against pack_codes of the plain
     # version's codes; (trials, warm-up, lanes, max block size, blocks): the
     # serial schedule (trials 0; no warm-up), the paired one staged and, at
-    # 4,098 lanes, not; a full 1024-byte block at the sequential path's 2
-    # lanes (stereo 4-bit only: the plain version takes seconds a block)
+    # 4,098 lanes, not; full 1024-byte blocks only where a main path runs
+    # them (the plain version takes seconds a block): the sequential path's
+    # 2 lanes, stereo 4-bit, and the mono 2-bit cell's 256 lanes, staged at
+    # 2 lanes a CTA
     import aad_tpu_torch as at
 
     packed = [(0, True, 531, 64, 3), (2, False, 531, 96, 3), (1, True, 333, 64, 3), (2, True, 333, 96, 3),
-              (2, True, 4098, 64, 2), (2, True, 2, 1024, 1)]
+              (2, True, 4098, 64, 2), (2, True, 2, 1024, 1), (2, True, 256, 1024, 2)]
     for bps in (2, 3, 4):
         for C in (1, 2):
             for j, (trials, warm, lanes, block, B) in enumerate(packed):
-                if block == 1024 and (bps, C) != (4, 2):
+                if block == 1024 and (bps, C, lanes) not in ((4, 2, 2), (2, 1, 256)):
                     continue
                 rows = lanes // C
                 geo = at.compute_block_geometry(block, C, bps)

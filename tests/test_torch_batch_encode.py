@@ -60,6 +60,15 @@ def test_pile_matches_scan_engine_and_solo_encodes(nch, bps, ms, trials, bsize):
     _check(_pile(nch * 10 + bps, nch, lengths), nch, bps, bsize, ms, trials)
 
 
+def test_mono_cell_pile_matches_scan_engine_and_solo_encodes():
+    """The geometry of the benchmark's mono cell (aad-b2-s1024-mono: 1
+    channel, 2 bits, 1,024-byte blocks of 4,028 samples, 2 trials): a pile
+    of one launch, a stream shorter than a block and one whose last block
+    holds 2 samples."""
+    nspb = _configs(1, 2, 1024)[1].geometry().num_samples_per_block
+    _check(_pile(12, 1, [nspb - 9, nspb + 2]), 1, 2, 1024)
+
+
 @pytest.mark.parametrize("ms,trials", [(False, 2), (True, 1)])
 def test_long_pile_chains_the_carry_across_chunks(monkeypatch, ms, trials):
     """Constants shrunk so that the pile runs in chunks of 2 blocks: one

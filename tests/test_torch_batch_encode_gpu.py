@@ -7,7 +7,10 @@ blocks on), a pile whose streams end in three different chunks must equal
 each stream's solo ``encode()`` on the card, in input order; under the
 profiler, every chunk but the first is staged while an earlier one is
 queued (``pile_chunks_staged_ahead`` = chunks - 1), and the other pile
-counters equal what the lengths imply. Imports no jax:
+counters equal what the lengths imply. A shorter pile is one launch: a mono
+2-bit pile at the benchmark's mono cell geometry must equal the solo
+encodes, and under the profiler the host's wait for kernel 3 and the copy
+down lies in ``aad.encode_batch.wait``, not in ``aad.d2h``. Imports no jax:
 
     python -m pytest --noconftest -m gpu tests/test_torch_batch_encode_gpu.py -q
 
@@ -19,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity
 
 import aad_tpu_torch
@@ -35,10 +39,10 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _pile(seed: int, lengths: list) -> list:
+def _pile(seed: int, lengths: list, channels: int = 2) -> list:
     rng = np.random.default_rng(seed)
-    return [(9000 * np.sin(np.arange(n) / (5.0 + 40 * rng.random((2, 1)))) + rng.normal(0, 900, (2, n)))
-            .astype(np.int16) for n in lengths]
+    return [(9000 * np.sin(np.arange(n) / (5.0 + 40 * rng.random((channels, 1))))
+             + rng.normal(0, 900, (channels, n))).astype(np.int16) for n in lengths]
 
 
 @pytest.mark.parametrize("ms,trials", [(0, 2), (1, 1)])
@@ -63,3 +67,34 @@ def test_staged_pile_matches_solo_encodes(cuda, ms, trials):
     spans = program_spans(prof)
     waits = [parent_of(e, spans) for e in spans if e.name() == "aad.encode_batch.wait"]
     assert waits == ["aad.encode_batch"] * 3
+
+
+def test_one_launch_mono_pile_waits_inside_its_wait_span(cuda):
+    """16 mono 2-bit streams of 1-40 blocks of 4,028 samples (1,024-byte
+    blocks, 2 trials): under 128 blocks, so one launch. The bytes equal the
+    solo encodes; on the profiler's timeline ``aad.encode_batch.wait``
+    covers the end of kernel 3 and of the copy down, and ``aad.d2h`` (the
+    copy queued) is shorter than it."""
+    cfg = EncodeConfig(num_channels=1, sampling_rate=22050, bits_per_sample=2, max_block_size=1024,
+                       ch_process_method=0, num_encode_trials=2)
+    nspb = cfg.geometry().num_samples_per_block
+    nbs = [40, 1, 17, 33, 2, 40, 9, 25, 3, 38, 12, 1, 30, 21, 7, 36]
+    lengths = [(nb - 1) * nspb + 1 + (613 * s) % nspb for s, nb in enumerate(nbs)]
+    pile = _pile(7, lengths, channels=1)
+    call = lambda: aad_tpu_torch.encode_batch(pile, cfg, device=cuda)  # noqa: E731
+    want = [aad_tpu_torch.encode(pcm, cfg, device=cuda) for pcm in pile]
+    assert call() == want
+    got, prof, gained = recorded(lambda: (call(), torch.cuda.synchronize(cuda))[0],
+                                 (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    assert got == want
+    assert gained["pile_chunks"] == 1 and gained["pile_pad_bytes"] == 2 * (16 * 40 * nspb - sum(lengths))
+    events = prof.profiler.kineto_results.events()
+    on_card = [e for e in events if e.device_type() == DeviceType.CUDA]
+    kernel = [e for e in on_card if "encode_stream_paired_kernel" in e.name()]
+    down = [e for e in on_card if e.name().startswith("Memcpy DtoH")]
+    (wait,) = [e for e in events if e.name() == "aad.encode_batch.wait"]
+    (d2h,) = [e for e in events if e.name() == "aad.d2h"]
+    assert len(kernel) == 1 and down
+    assert wait.start_ns() <= kernel[0].end_ns() <= wait.end_ns()
+    assert max(e.end_ns() for e in down) <= wait.end_ns()
+    assert d2h.end_ns() - d2h.start_ns() < wait.end_ns() - wait.start_ns()

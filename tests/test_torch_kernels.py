@@ -324,10 +324,23 @@ def test_encode_stream_kernel_packs_like_plain(cuda, bps, C, trials, warm, block
     of a row interleaved unit by unit, equal to the plain version's codes
     packed by bitpack.pack_codes; valid counts 0-3, ragged (at 3 bits a
     last unit partly past them) and full, and forged carries."""
+    _packs_like_plain(cuda, bps, C, trials, warm, blocks_before, rows, block, num_blocks=3)
+
+
+def test_encode_stream_kernel_packs_like_plain_at_the_mono_cell_lanes(cuda):
+    """The lanes of the benchmark's mono 2-bit cell (aad-b2-s1024-mono):
+    1 channel, 2 bits, 1,024-byte blocks (4,028 samples), trials 2 with the
+    warm-up, 256 rows: the paired schedule staged, at 2 lanes a CTA (a lane
+    takes 2 * 1,006 + 4 * 4,028 = 18,124 bytes of the CTA's 47,104). Two
+    blocks, so that the plain version stays quick."""
+    _packs_like_plain(cuda, 2, 1, 2, True, 0, 256, 1024, num_blocks=2)
+
+
+def _packs_like_plain(cuda, bps, C, trials, warm, blocks_before, rows, block, num_blocks):
     geo = compute_block_geometry(block, C, bps)
     nspb = geo.num_samples_per_block
-    blocks, valid, (state, prev) = _encode_lanes(bps * 13 + C + rows, 3, rows * C, nspb)
-    blocks, valid = blocks.reshape(3, rows, C, nspb), valid.reshape(3, rows, C)
+    blocks, valid, (state, prev) = _encode_lanes(bps * 13 + C + rows, num_blocks, rows * C, nspb)
+    blocks, valid = blocks.reshape(num_blocks, rows, C, nspb), valid.reshape(num_blocks, rows, C)
     carry = (state.map(lambda a: a.reshape(rows, C, *a.shape[1:])), prev.reshape(rows, C, nspb))
     kw = dict(carry=carry, blocks_before=blocks_before, warm_on_prev=warm, need_carry=False, pack=geo)
     want = fused_encode.encode_stream_reference(blocks, valid, bps, trials, **kw)
@@ -337,7 +350,7 @@ def test_encode_stream_kernel_packs_like_plain(cuda, bps, C, trials, warm, block
     torch.cuda.synchronize()
     assert fused_encode.launches[fused_encode.STREAM_KERNEL] == before[0][fused_encode.STREAM_KERNEL] + 1
     assert encode_pass.launches == before[1]
-    assert got[1].dtype == torch.uint8 and got[1].shape == (3, rows, geo.data_bytes)
+    assert got[1].dtype == torch.uint8 and got[1].shape == (num_blocks, rows, geo.data_bytes)
     assert _same(tuple(got[0]), tuple(want[0])) and _same(got[1], want[1])
 
 

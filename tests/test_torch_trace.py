@@ -43,7 +43,9 @@ def _pcm(seed: int, n: int) -> np.ndarray:
 
 def encode_batch_case(device):
     """encode_batch of two streams of 2 and 1 blocks: (call, the spans in
-    call order as (name, parent's name), the counts it adds)."""
+    call order as (name, parent's name), the counts it adds). One launch:
+    ``aad.d2h`` queues the copy down, and ``aad.encode_batch.wait`` waits
+    for it, as for a chunk's."""
     pile = [_pcm(1, NSPB + 5), _pcm(2, NSPB)]
     S, B = len(pile), 2
     spans = [
@@ -55,9 +57,10 @@ def encode_batch_case(device):
         ("aad.encode_batch.wait", "aad.encode_batch"),
         ("aad.encode_batch.assemble", "aad.encode_batch"),
     ]
-    # one launch: one chunk, staged with nothing queued before it
+    # one launch: one chunk, staged with nothing queued before it; zeros
+    # past the first stream's 5 samples of block 1 and for the second's block 1
     counts = {"h2d_bytes": S * 2 * B * NSPB * 2, "d2h_bytes": S * B * GEO.block_size,
-              "pile_chunks": 1, "pile_streams": S}
+              "pile_chunks": 1, "pile_streams": S, "pile_pad_bytes": ((NSPB - 5) + NSPB) * 2 * 2}
     return lambda: aad_tpu_torch.encode_batch(pile, CFG, device=device), spans, counts
 
 
@@ -209,6 +212,26 @@ def test_pile_counters_follow_the_chunks(monkeypatch, nbs, parallel):
         found = [parent_of(e, spans) for e in spans if e.name() == name]
         assert found == ["aad.encode_batch"] * want["pile_chunks"], name
     assert out == aad_tpu_torch.encode_batch(pile, CFG, device="cpu", parallel_blocks=parallel)
+
+
+@pytest.mark.parametrize("nbs,parallel", [
+    ([1, 3, 7], False),  # chunks [0, 2) [2, 4) [4, 6) [6, 7), block-major
+    ([2, 6, 5, 4], False),  # chunks of 2, the last one whole
+    ([1, 2], False),  # one launch, stream-major
+    ([1, 7], True),  # block-parallel: one launch
+])
+def test_pile_pad_bytes_count_the_zeros_staged(monkeypatch, nbs, parallel):
+    """``pile_pad_bytes`` counts the zeros staged past each stream's end, in
+    the chunked (block-major) and the one-launch (stream-major) layout alike:
+    every block of the pile less the stream's own samples; the pile's upload
+    is both."""
+    monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
+    monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
+    pile = pile_of(nbs)
+    _, _, gained = recorded(lambda: aad_tpu_torch.encode_batch(pile, CFG, device="cpu", parallel_blocks=parallel))
+    samples = sum(p.shape[1] for p in pile)
+    assert gained["pile_pad_bytes"] == (len(pile) * max(nbs) * NSPB - samples) * 2 * 2
+    assert gained["h2d_bytes"] == gained["pile_pad_bytes"] + samples * 2 * 2
 
 
 def test_spans_and_counts_leave_results_alone():
