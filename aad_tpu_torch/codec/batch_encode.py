@@ -5,8 +5,12 @@ across streams, so a pile runs in lockstep: block b of every stream encodes
 together, with streams x channels on the kernel's lane axis (kernel 3,
 ``ops.fused_encode.encode_stream``, with lanes (S, C)). Streams of
 different lengths share the launches through per-(block, stream) valid
-counts: a stream's blocks past its end encode zeros and are dropped at
-assembly, so each stream's bytes equal its solo encode.
+counts: a stream's blocks past its end have valid 0, encode whatever the
+staging buffer held there and are dropped at assembly, so each stream's
+bytes equal its solo encode. The chain runs forward only, and a lane's
+blocks past its end come after all of its kept ones, so they reach none of
+its bytes; only the tail of a stream's last block is zeroed, since the
+codes past its valid count are encoded from those samples.
 
 The pipeline, for a pile long enough to run in chunks (``_OVERLAP_MIN_BLOCKS``
 blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
@@ -18,13 +22,19 @@ blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
     download:                              | down 0        | down 1        | ...
 
 * check: shapes and the int16 range, the file headers;
-* stage k: each stream's samples of chunk k's 64 blocks, zero past its end,
-  into the pinned block-major (B, S, C, nspb) int16 pile, where a chunk is a
-  contiguous slice; chunk k + 1 is laid out only once chunk k's upload and
-  launches are queued, so the host's copy runs while the device runs;
-* device: chunk k's kernel 3 launch on (S, C) lanes, kernel 4 rebuilding
-  the carry for the next chunk, the block headers, and the chunk's bytes
-  made stream-major, (S, count * block_size);
+* stage k: each stream's samples of chunk k's 64 blocks, one run a
+  channel, into chunk k's region of the pinned int16 pile, laid out
+  stream-major, (S, C, 64, nspb) (the chunks one after another, so a chunk
+  is a contiguous slice and goes up in one copy); zeros only from a
+  stream's last sample to the end of its last block, and nothing into the
+  blocks wholly past its end; chunk k + 1 is laid out only once chunk k's
+  upload and launches are queued, so the host's copy runs while the device
+  runs;
+* device: chunk k seen block-major, (64, S, C, nspb), a view of its
+  upload, which kernel 3's relayout into its time-major layout takes as it
+  is; its kernel 3 launch on (S, C) lanes, kernel 4 rebuilding the carry
+  for the next chunk, the block headers, and the chunk's bytes made
+  stream-major, (S, count * block_size);
 * down k: those bytes in one copy into chunk k's own region of the pinned
   output (S * B * block_size bytes, chunk after chunk), then an event;
 * once the last chunk is launched, the host walks the chunks in order,
@@ -35,18 +45,18 @@ blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
   later ones.
 
 A shorter pile, or ``parallel_blocks=True``, is one launch: the whole pile
-staged stream-major (each stream's samples one run, which lays out a pile
-of many streams faster than the block-major layout), one upload, one
-launch, one download queued behind it into pinned memory, then the host's
-wait for that download's event (``aad.encode_batch.wait``, as a chunk's)
-and the byte strings.
+staged stream-major as one chunk, (S, C, B * nspb), the same way, one
+upload, one launch, one download queued behind it into pinned memory, then
+the host's wait for that download's event (``aad.encode_batch.wait``, as a
+chunk's) and the byte strings.
 The counters ``pile_chunks``,
 ``pile_chunks_staged_ahead`` (chunks laid out while an earlier chunk was
 queued on the device), ``pile_streams`` and
 ``pile_streams_assembled_early`` (byte strings built before the host
 waited for the last chunk) say how often the overlap engages;
-``pile_pad_bytes`` counts the zeros staged past the streams' ends, in
-either layout.
+``pile_pad_bytes`` counts the pile's upload less its samples, and
+``pile_zero_bytes`` the zeros the host wrote (the tails of the streams'
+last blocks), in either layout.
 
 Not carried over from ``aad_tpu.codec.batch_encode``: the folded c-major
 wire32 lane layout, a TPU tiling concern (a thread is a lane here, so
@@ -126,13 +136,14 @@ def encode_batch(
         nbs = [num_blocks_for(n, nspb) for n in lengths]
         B = max(nbs)
         if runs_in_chunks(B, parallel_blocks):
-            host, wait, chunks = _encode_in_chunks(arrays, config, B, device)
+            host, wait, chunks, zeros = _encode_in_chunks(arrays, config, B, device)
         else:
-            host, wait = _encode_at_once(arrays, config, B, device, parallel_blocks, parallel_chunk_blocks,
-                                         parallel_warm_passes)
+            host, wait, zeros = _encode_at_once(arrays, config, B, device, parallel_blocks,
+                                                parallel_chunk_blocks, parallel_warm_passes)
             chunks = [(0, B)]
         count("pile_streams", S)
         count("pile_pad_bytes", (S * B * nspb - sum(lengths)) * nch * 2)  # the pile's upload less its samples
+        count("pile_zero_bytes", zeros)
         # each chunk's (S, n * block_size) bytes, and the streams whose last block lies in it
         flat = host.numpy()
         rows = [flat[S * b0 * bs : S * (b0 + n) * bs].reshape(S, n * bs) for b0, n in chunks]
@@ -167,26 +178,31 @@ def _encode_in_chunks(arrays: list[np.ndarray], config: EncodeConfig, B: int, de
     """A pile that runs in chunks, each staged while the device runs the one
     before, its bytes brought down into a flat pinned buffer (``encode_blocks``'
     pile output). Returns (the buffer, a function that waits for chunk k's
-    bytes, the chunks' (first block, blocks) in launch order)."""
+    bytes, the chunks' (first block, blocks) in launch order, the zero bytes
+    staged)."""
     geo = config.geometry()
-    nspb, S = geo.num_samples_per_block, len(arrays)
-    valid = _valid(arrays, B, nspb, device)
+    nspb, S, C = geo.num_samples_per_block, len(arrays), config.num_channels
     xfer = Transfer(device)
-    # block-major, so that a chunk is a contiguous slice; pinned, and torch's to reuse across calls
-    pile = xfer.host((B, S, config.num_channels, nspb), torch.int16)
-    pile_np = pile.numpy()
+    # chunk after chunk, each stream-major, so that a stream's samples of a chunk
+    # go in as one run a channel (block-major, each block's run lands a chunk's
+    # S * C * nspb samples from the last, and a pile lays out a third slower);
+    # pinned, and torch's to reuse across calls
+    pile = xfer.host((S * C * B * nspb,), torch.int16)
     host = xfer.host((S * B * geo.block_size,), torch.uint8)
-    chunks = []
+    chunks, zeros = [], []
 
-    def stage(b0: int, n: int) -> None:
+    def stage(b0: int, n: int) -> torch.Tensor:
         with span("aad.encode_batch.stage"):
             count("pile_chunks", 1)
             count("pile_chunks_staged_ahead", int(b0 > 0))
-            _stage_blocks(arrays, pile_np[b0 : b0 + n], b0 * nspb)
+            chunk = pile[S * C * b0 * nspb : S * C * (b0 + n) * nspb].view(S, C, n, nspb)
+            zeros.append(_stage_runs(arrays, chunk.numpy().reshape(S, C, n * nspb), b0 * nspb, nspb))
         chunks.append((b0, n))
+        return chunk
 
-    encode_blocks(pile, valid, config, transfer=xfer, out=host, stage=stage)
-    return host, xfer.wait, chunks
+    blocks = torch.empty((B, S, C, nspb), dtype=torch.int16, device="meta")  # the shape; stage gives the blocks
+    encode_blocks(blocks, _valid(arrays, B, nspb, device), config, transfer=xfer, out=host, stage=stage)
+    return host, xfer.wait, chunks, sum(zeros)
 
 
 def _encode_at_once(arrays: list[np.ndarray], config: EncodeConfig, B: int, device: torch.device,
@@ -194,18 +210,14 @@ def _encode_at_once(arrays: list[np.ndarray], config: EncodeConfig, B: int, devi
     """A pile of one launch: staged whole, one copy up, one launch, its bytes
     down in one copy queued behind it. Returns (a flat pinned buffer, S * B *
     block_size bytes, each stream's blocks a run; a function that waits for
-    the copy down, as ``_encode_in_chunks``' does for chunk k)."""
+    the copy down, as ``_encode_in_chunks``' does for chunk k; the zero bytes
+    staged)."""
     geo = config.geometry()
     nspb, S = geo.num_samples_per_block, len(arrays)
     with span("aad.encode_batch.stage"):
         count("pile_chunks", 1)
-        # stream-major: each stream's samples one run (a block-major layout
-        # scatters them, and costs a pile of thousands of streams a fifth more)
         staged = torch.empty((S, config.num_channels, B * nspb), dtype=torch.int16, pin_memory=device.type == "cuda")
-        view = staged.numpy()
-        for s, pcm in enumerate(arrays):
-            view[s, :, : pcm.shape[1]] = pcm
-            view[s, :, pcm.shape[1] :] = 0
+        zeros = _stage_runs(arrays, staged.numpy(), 0, nspb)
         with span("aad.h2d"):
             count("h2d_bytes", staged.nbytes)
             pile = staged.to(device, non_blocking=True)
@@ -218,21 +230,22 @@ def _encode_at_once(arrays: list[np.ndarray], config: EncodeConfig, B: int, devi
         count("d2h_bytes", rows.nbytes)
         host.view(rows.shape).copy_(rows, non_blocking=True)
     if device.type != "cuda":
-        return host, lambda k: None  # the copy has landed
+        return host, lambda k: None, zeros  # the copy has landed
     landed = torch.cuda.current_stream(device).record_event()
-    return host, lambda k: landed.synchronize()
+    return host, lambda k: landed.synchronize(), zeros
 
 
-def _stage_blocks(arrays: list[np.ndarray], dst: np.ndarray, s0: int) -> None:
-    """Each stream's samples from ``s0`` on into ``dst``, its (n, S, C, nspb)
-    int16 blocks, zero past the stream's end."""
-    n, _, C, nspb = dst.shape
+def _stage_runs(arrays: list[np.ndarray], dst: np.ndarray, s0: int, nspb: int) -> int:
+    """Each stream's samples from ``s0`` on into ``dst``, (S, C, n) int16
+    stream-major (a pile's blocks [s0 / nspb, (s0 + n) / nspb)), one run a
+    channel, and zeros from the stream's last sample to the end of its last
+    block. Nothing is written past that: those blocks' valid counts are 0.
+    Returns the zero bytes written."""
+    zeros = 0
     for s, pcm in enumerate(arrays):
-        blocks = dst[:, s]
-        m = max(0, min(pcm.shape[1] - s0, n * nspb))  # the stream's samples in these blocks
-        full, r = divmod(m, nspb)
-        blocks[:full] = pcm[:, s0 : s0 + full * nspb].reshape(C, full, nspb).transpose(1, 0, 2)
-        if full < n:
-            blocks[full, :, :r] = pcm[:, s0 + full * nspb : s0 + m]
-            blocks[full, :, r:] = 0
-            blocks[full + 1 :] = 0
+        m = max(0, min(pcm.shape[1] - s0, dst.shape[2]))  # the stream's samples here
+        dst[s, :, :m] = pcm[:, s0 : s0 + m]
+        tail = dst[s, :, m : m + -m % nspb]  # the rest of its last block, where that lies here
+        tail[...] = 0
+        zeros += tail.nbytes
+    return zeros

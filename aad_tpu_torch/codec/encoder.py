@@ -222,10 +222,12 @@ def encode_blocks(
     parallel_warm_passes: int = 0,
     transfer: Transfer | None = None,
     out: torch.Tensor | None = None,
-    stage: Callable[[int, int], None] | None = None,
+    stage: Callable[[int, int], torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The encode of every lane's blocks: (B, *streams, C, nspb) int16 LR
-    blocks, zero past each lane's end, and ``valid`` samples per (block,
+    blocks, zero from each lane's end to the end of its last block (blocks
+    wholly past it, valid 0, may hold anything: their codes reach no kept
+    block), and ``valid`` samples per (block,
     lane), (B,) or broadcastable to (B, *streams, C) -> (B, *streams, block_size)
     uint8, each block's header and data region, its codes packed by kernel 3
     (or its plain version). One stream (``Encoder``) or a pile of them
@@ -251,9 +253,12 @@ def encode_blocks(
     of blocks [b0, b0 + count) are made stream-major on the device and come
     down in one copy, as (S, count * block_size), to bytes
     [S * b0 * block_size, S * (b0 + count) * block_size).
-    ``stage(b0, count)``, where given, fills blocks [b0, b0 + count) of the
-    host tensor just before they go up, so that the host lays out a chunk
-    while the device runs the chunks before it.
+    A pile's ``stage(b0, count)`` lays out blocks [b0, b0 + count) just
+    before they go up, so that the host lays out a chunk while the device
+    runs the chunks before it, and returns them stream-major, a contiguous
+    (S, C, count, nspb) host tensor, pinned on a card; they go up as that
+    and are seen on the device as (count, S, C, nspb). ``blocks`` then gives
+    only the pile's shape (a tensor on the meta device will do).
     ``valid`` lies on ``transfer.device``.
     """
     geo = config.geometry()
@@ -269,9 +274,9 @@ def encode_blocks(
     def up(b0: int, count: int) -> torch.Tensor:
         if transfer is None:
             return blocks[b0 : b0 + count]
-        if stage is not None:
-            stage(b0, count)
-        return transfer.upload(blocks[b0 : b0 + count])
+        if stage is None:
+            return transfer.upload(blocks[b0 : b0 + count])
+        return transfer.upload(stage(b0, count)).permute(2, 0, 1, 3)  # a pile's chunk, (count, S, C, nspb)
 
     def put(rows: torch.Tensor, b0: int) -> None:
         count = rows.shape[0]

@@ -38,8 +38,10 @@ with ``aad.``:
   ``pile_chunks_staged_ahead`` (of them, those staged while an earlier
   chunk was queued on the device), ``pile_streams`` (streams encoded),
   ``pile_streams_assembled_early`` (of them, those whose byte strings were
-  built before the host waited for the pile's last chunk) and
-  ``pile_pad_bytes`` (the zeros staged past the streams' ends);
+  built before the host waited for the pile's last chunk),
+  ``pile_pad_bytes`` (the pile's upload less its samples) and
+  ``pile_zero_bytes`` (the zeros the host wrote into it: the tails of the
+  streams' last blocks);
 * kernel launches, on a card only: ``aad.launch.decode_lanes``,
   ``aad.launch.stepsize_probe``, ``aad.launch.encode_stream``,
   ``aad.launch.encode_pass``, ``aad.launch.lms_lanes``.

@@ -1309,6 +1309,16 @@ def pile_streams(pcm, lengths, seed) -> list[np.ndarray]:
     return [np.ascontiguousarray(pcm[:, o : o + n]) for o, n in zip(offsets, lengths)]
 
 
+def pile_blocks(pile, nspb: int) -> np.ndarray:
+    """A pile of (C, n) streams as (B, S, C, nspb) int16 blocks, contiguous,
+    zero past each stream's end."""
+    nb = -(-max(p.shape[1] for p in pile) // nspb)
+    out = np.zeros((len(pile), pile[0].shape[0], nb * nspb), np.int16)
+    for s, p in enumerate(pile):
+        out[s, :, : p.shape[1]] = p
+    return np.ascontiguousarray(out.reshape(len(pile), -1, nb, nspb).transpose(2, 0, 1, 3))
+
+
 def timeline(label, fn, iters) -> tuple[float, float]:
     """``fn`` under torch.profiler: the device time by kernel and copy a
     call, and how much of the call's host-clock time the card was busy,
@@ -1550,7 +1560,6 @@ def batch_encode_phase(cuda, card, main) -> dict:
     encodes, exactness cases against the CPU, and times."""
     import torch
     import aad_tpu_torch as at
-    from aad_tpu_torch.codec.batch_encode import _stage_blocks
     from aad_tpu_torch.codec.encoder import _OVERLAP_CHUNK_BLOCKS, _OVERLAP_MIN_BLOCKS
     from aad_tpu_torch.ops import encode_pass as ep, fused_encode as fe
     from aad_tpu_torch.ops.transitions import CodecState
@@ -1590,9 +1599,7 @@ def batch_encode_phase(cuda, card, main) -> dict:
     # last block at 4,096 lanes; then kernel 3 on chunk 1 from that carry
     cb, L = _OVERLAP_CHUNK_BLOCKS, 2 * PILE_STREAMS
     bps, trials = cfg.bits_per_sample, cfg.num_encode_trials
-    staged = np.empty((nblocks, PILE_STREAMS, 2, nspb), np.int16)
-    _stage_blocks(pile, staged, 0)
-    blocks = torch.from_numpy(staged).to(cuda)  # (B, S, C, nspb), as encode_batch stages it
+    blocks = torch.from_numpy(pile_blocks(pile, nspb)).to(cuda)  # (B, S, C, nspb), as encode_batch sees it
     starts = torch.arange(nblocks, device=cuda)[:, None] * nspb
     valid = torch.clamp(torch.as_tensor(lengths, device=cuda)[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
     head, _, carry = fe.encode_stream(blocks[:cb], valid[:cb], bps, trials, need_carry=True)
@@ -1825,7 +1832,6 @@ def sharding_phase(cuda, card, bench, main) -> dict:
     launches of the checked calls by kernel."""
     import torch
     import aad_tpu_torch as at
-    from aad_tpu_torch.codec.batch_encode import _stage_blocks
     from aad_tpu_torch.codec.encoder import _block_bytes, _pad_to_blocks, payload_size
     from aad_tpu_torch.ops import fused_decode as fd, fused_encode as fe, lms
     from aad_tpu_torch.ops.bitpack import pack_codes
@@ -1907,9 +1913,7 @@ def sharding_phase(cuda, card, bench, main) -> dict:
     n = PILE_TIME_SECONDS * RATE
     two = pile_streams(pcm, [n] * max(PILE_SIZES), SEED + 20)
     S, nb = len(two), -(-n // nspb)
-    staged = np.empty((nb, S, 2, nspb), np.int16)
-    _stage_blocks(two, staged, 0)
-    pile = torch.from_numpy(staged).to(cuda).transpose(0, 1)  # (S, B, C, nspb) int16
+    pile = torch.from_numpy(pile_blocks(two, nspb)).to(cuda).transpose(0, 1)  # (S, B, C, nspb) int16
     valid = torch.clamp(n - torch.arange(nb, device=cuda) * nspb, 0, nspb).to(torch.int32).expand(S, nb)
     bps, trials = cfg.bits_per_sample, cfg.num_encode_trials
     uh, uc, _ = fe.encode_stream(pile.transpose(0, 1), valid.t()[..., None], bps, trials, need_carry=False)

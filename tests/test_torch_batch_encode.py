@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 import aad_tpu
 from aad_tpu.codec.encoder import EncodeConfig as JaxEncodeConfig
@@ -23,6 +24,7 @@ from aad_tpu.codec.encoder import EncodeConfig as JaxEncodeConfig
 import aad_tpu_torch
 import aad_tpu_torch.codec.encoder as enc_mod
 from aad_tpu_torch import EncodeConfig
+from test_torch_trace import garbage_staging
 
 
 def _configs(nch, bps, bsize, ms=False, trials=2):
@@ -98,6 +100,45 @@ def test_staged_pile_cuts_each_stream_in_its_last_chunk(monkeypatch, blocks, ms,
     nspb = _configs(2, 4, 96)[1].geometry().num_samples_per_block
     lengths = [(nb - 1) * nspb + 1 + (7 * s + 3) % nspb for s, nb in enumerate(blocks)]
     _check(_pile(sum(blocks) + trials, 2, lengths), 2, 4, 96, ms, trials, parallel_blocks=parallel)
+
+
+@pytest.mark.parametrize("layout,ms,trials", [
+    ("chunks", False, 2), ("chunks", True, 0), ("chunks", True, 2), ("chunks", False, 0),
+    ("one launch", False, 2), ("one launch", True, 0), ("block-parallel", True, 2),
+])
+def test_pile_ignores_what_its_staging_buffer_held(monkeypatch, layout, ms, trials):
+    """The pile's staging buffer full of random int16 before it is laid out,
+    as a reused pinned buffer is: the bytes still equal aad_tpu's pile and
+    the solo encodes, since the host zeroes each stream's last block past its
+    end and its blocks past that cannot reach its bytes; and what the buffer
+    held in those blocks is still there after the call, so the host wrote
+    nothing there. Chunks of 2 blocks (constants shrunk); streams whose last
+    block holds 2 and 3 samples, one that ends on a block boundary inside a
+    chunk and one on a chunk boundary."""
+    chunked = layout == "chunks"
+    if chunked:
+        monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
+        monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
+    nspb = _configs(2, 4, 96)[1].geometry().num_samples_per_block
+    lengths = [nspb + 2, 4 * nspb, 3, 3 * nspb, 7 * nspb - 5 if chunked else 5 * nspb - 5]
+    pile = _pile(len(layout) + 2 * trials + ms, 2, lengths)
+    parallel = layout == "block-parallel"
+    kw = dict(parallel_blocks=True, parallel_chunk_blocks=2, parallel_warm_passes=1) if parallel else {}
+    with garbage_staging(trials + 7 * ms) as made:
+        _check(pile, 2, 4, 96, ms, trials, **kw)
+    S, B, step = len(pile), -(-max(lengths) // nspb), 2 if chunked else None
+    staged, held = next((t, g) for t, g in made if t.numel() == S * 2 * B * nspb)  # the pile's, made first
+    for b0 in range(0, B, step or B):
+        n = min(step or B, B - b0)
+        got = staged.view(-1)[S * 2 * b0 * nspb : S * 2 * (b0 + n) * nspb].view(S, 2, n * nspb)
+        was = held.view(-1)[S * 2 * b0 * nspb : S * 2 * (b0 + n) * nspb].view(S, 2, n * nspb)
+        for s, length in enumerate(lengths):
+            kept = min(max(0, -(-length // nspb) - b0), n) * nspb  # up to the end of the stream's last block
+            m = min(max(0, length - b0 * nspb), kept)
+            want = np.zeros((2, kept), np.int16)  # its samples, then zeros
+            want[:, :m] = pile[s][:, b0 * nspb : b0 * nspb + m]
+            assert np.array_equal(got[s, :, :kept].numpy(), want), (b0, s)
+            assert torch.equal(got[s, :, kept:], was[s, :, kept:]), (b0, s)  # the garbage past it, left alone
 
 
 @pytest.mark.parametrize("chunk_blocks,warm_passes", [(1, 0), (2, 1), (3, 0)])

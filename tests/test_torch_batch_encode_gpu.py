@@ -7,7 +7,9 @@ blocks on), a pile whose streams end in three different chunks must equal
 each stream's solo ``encode()`` on the card, in input order; under the
 profiler, every chunk but the first is staged while an earlier one is
 queued (``pile_chunks_staged_ahead`` = chunks - 1), and the other pile
-counters equal what the lengths imply. A shorter pile is one launch: a mono
+counters equal what the lengths imply; with its pinned staging buffer full
+of random int16 before it is laid out, the same pile gives the same bytes,
+bit for bit. A shorter pile is one launch: a mono
 2-bit pile at the benchmark's mono cell geometry must equal the solo
 encodes, and under the profiler the host's wait for kernel 3 and the copy
 down lies in ``aad.encode_batch.wait``, not in ``aad.d2h``. Imports no jax:
@@ -27,7 +29,7 @@ from torch.profiler import ProfilerActivity
 
 import aad_tpu_torch
 from aad_tpu_torch import EncodeConfig
-from test_torch_trace import parent_of, pile_counts, program_spans, recorded
+from test_torch_trace import garbage_staging, parent_of, pile_counts, program_spans, recorded
 
 pytestmark = pytest.mark.gpu
 
@@ -67,6 +69,35 @@ def test_staged_pile_matches_solo_encodes(cuda, ms, trials):
     spans = program_spans(prof)
     waits = [parent_of(e, spans) for e in spans if e.name() == "aad.encode_batch.wait"]
     assert waits == ["aad.encode_batch"] * 3
+
+
+@pytest.mark.parametrize("ms,trials", [(0, 2), (1, 0)])
+def test_staged_pile_ignores_what_its_staging_buffer_held(cuda, ms, trials):
+    """Streams of 30, 150, 100, 1, 128 and 129 blocks, the third ending on a
+    block boundary, the fifth on a chunk boundary, the first with 2 samples
+    in its last block: staged into a pinned buffer full of random int16, the
+    pile's bytes equal, bit for bit, those of the same call without it and
+    the solo encodes; and the buffer's garbage past each stream's last block
+    is still there."""
+    cfg = EncodeConfig(num_channels=2, sampling_rate=48000, bits_per_sample=4, max_block_size=1024,
+                       ch_process_method=ms, num_encode_trials=trials)
+    nspb = cfg.geometry().num_samples_per_block
+    lengths = [29 * nspb + 2, 150 * nspb - 7, 100 * nspb, 5, 128 * nspb, 128 * nspb + 400]
+    pile = _pile(20 + ms * 10 + trials, lengths)
+    want = aad_tpu_torch.encode_batch(pile, cfg, device=cuda)
+    assert want == [aad_tpu_torch.encode(pcm, cfg, device=cuda) for pcm in pile]
+    with garbage_staging(3 + trials) as made:
+        got = aad_tpu_torch.encode_batch(pile, cfg, device=cuda)
+    assert got == want
+    S, B = len(pile), 150
+    staged, held = next((t, g) for t, g in made if t.numel() == S * 2 * B * nspb)
+    for b0 in range(0, B, 64):
+        n = min(64, B - b0)
+        got_chunk, was = (t.view(-1)[S * 2 * b0 * nspb : S * 2 * (b0 + n) * nspb].view(S, 2, n * nspb)
+                          for t in (staged, held))
+        for s, length in enumerate(lengths):
+            kept = min(max(0, -(-length // nspb) - b0), n) * nspb  # up to the end of the stream's last block
+            assert torch.equal(got_chunk[s, :, kept:], was[s, :, kept:]), (b0, s)
 
 
 def test_one_launch_mono_pile_waits_inside_its_wait_span(cuda):

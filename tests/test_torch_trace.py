@@ -13,6 +13,7 @@ card). The launch spans exist on a card only: the GPU tests hold them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import tempfile
@@ -57,10 +58,12 @@ def encode_batch_case(device):
         ("aad.encode_batch.wait", "aad.encode_batch"),
         ("aad.encode_batch.assemble", "aad.encode_batch"),
     ]
-    # one launch: one chunk, staged with nothing queued before it; zeros
-    # past the first stream's 5 samples of block 1 and for the second's block 1
+    # one launch: one chunk, staged with nothing queued before it; the upload
+    # holds the rest of the first stream's block 1, past its 5 samples, and
+    # the second's block 1, but the host zeroes only the first
     counts = {"h2d_bytes": S * 2 * B * NSPB * 2, "d2h_bytes": S * B * GEO.block_size,
-              "pile_chunks": 1, "pile_streams": S, "pile_pad_bytes": ((NSPB - 5) + NSPB) * 2 * 2}
+              "pile_chunks": 1, "pile_streams": S, "pile_pad_bytes": ((NSPB - 5) + NSPB) * 2 * 2,
+              "pile_zero_bytes": (NSPB - 5) * 2 * 2}
     return lambda: aad_tpu_torch.encode_batch(pile, CFG, device=device), spans, counts
 
 
@@ -215,16 +218,15 @@ def test_pile_counters_follow_the_chunks(monkeypatch, nbs, parallel):
 
 
 @pytest.mark.parametrize("nbs,parallel", [
-    ([1, 3, 7], False),  # chunks [0, 2) [2, 4) [4, 6) [6, 7), block-major
+    ([1, 3, 7], False),  # chunks [0, 2) [2, 4) [4, 6) [6, 7)
     ([2, 6, 5, 4], False),  # chunks of 2, the last one whole
-    ([1, 2], False),  # one launch, stream-major
+    ([1, 2], False),  # one launch
     ([1, 7], True),  # block-parallel: one launch
 ])
 def test_pile_pad_bytes_count_the_zeros_staged(monkeypatch, nbs, parallel):
-    """``pile_pad_bytes`` counts the zeros staged past each stream's end, in
-    the chunked (block-major) and the one-launch (stream-major) layout alike:
-    every block of the pile less the stream's own samples; the pile's upload
-    is both."""
+    """``pile_pad_bytes`` counts the pile's upload less its samples, in the
+    chunked and the one-launch layout alike: every block of the pile less the
+    stream's own samples; the pile's upload is both."""
     monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
     monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
     pile = pile_of(nbs)
@@ -232,6 +234,49 @@ def test_pile_pad_bytes_count_the_zeros_staged(monkeypatch, nbs, parallel):
     samples = sum(p.shape[1] for p in pile)
     assert gained["pile_pad_bytes"] == (len(pile) * max(nbs) * NSPB - samples) * 2 * 2
     assert gained["h2d_bytes"] == gained["pile_pad_bytes"] + samples * 2 * 2
+
+
+@pytest.mark.parametrize("nbs,parallel", [
+    ([1, 3, 7], False),  # chunks [0, 2) [2, 4) [4, 6) [6, 7): streams end in chunks 0, 1 and 3
+    ([2, 6, 5, 4], False),  # chunks of 2, the last one whole
+    ([1, 2], False),  # one launch
+    ([1, 7], True),  # block-parallel: one launch
+])
+def test_pile_zero_bytes_count_the_tails_of_last_blocks(monkeypatch, nbs, parallel):
+    """``pile_zero_bytes`` counts the zeros the host writes, in either layout:
+    each stream's last block from its last sample on, and nothing for the
+    blocks past it; ``pile_pad_bytes`` still counts the whole upload less the
+    samples. One stream ends on a block boundary, with no tail."""
+    monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
+    monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
+    pile = pile_of(nbs) + [_pcm(9, 2 * NSPB)]
+    nbs = nbs + [2]
+    _, _, gained = recorded(lambda: aad_tpu_torch.encode_batch(pile, CFG, device="cpu", parallel_blocks=parallel))
+    samples = [p.shape[1] for p in pile]
+    assert gained["pile_zero_bytes"] == sum((nb * NSPB - n) * 2 * 2 for nb, n in zip(nbs, samples))
+    assert gained["pile_pad_bytes"] == (len(pile) * max(nbs) * NSPB - sum(samples)) * 2 * 2
+
+
+@contextlib.contextmanager
+def garbage_staging(seed: int):
+    """Inside the block, every int16 host tensor that ``torch.empty`` makes
+    (a pile's staging buffer among them: ``Transfer.host``'s, or the
+    one-launch pile's) holds random int16, as a reused buffer does. Yields
+    the list of (tensor, a copy of what it held at first), in the order
+    made."""
+    rng = np.random.default_rng(seed)
+    made, empty = [], torch.empty
+
+    def filled(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if t.dtype == torch.int16 and t.device.type == "cpu":
+            t.numpy()[...] = rng.integers(-(1 << 15), 1 << 15, t.shape, dtype=np.int16)
+            made.append((t, t.clone()))
+        return t
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(torch, "empty", filled)
+        yield made
 
 
 def test_spans_and_counts_leave_results_alone():
