@@ -12,9 +12,10 @@ blocks past its end come after all of its kept ones, so they reach none of
 its bytes; only the tail of a stream's last block is zeroed, since the
 codes past its valid count are encoded from those samples.
 
-The pipeline, for a pile long enough to run in chunks (``_OVERLAP_MIN_BLOCKS``
-blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
-``codec.transfer.Transfer``), on the caller's thread:
+Every pile takes one pipeline, on the caller's thread, in the chunks of
+``codec.encoder.encode_blocks``: 64 blocks a chunk, chaining the carry, for
+a sequential pile of ``_OVERLAP_MIN_BLOCKS`` blocks and more; one chunk of
+B blocks for a shorter pile or with ``parallel_blocks=True``.
 
     host:    check | stage 0 | stage 1 | stage 2 | ... | wait 0, bytes | wait 1, bytes | ...
     upload:            | up 0    | up 1    | up 2 ...
@@ -22,21 +23,18 @@ blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
     download:                              | down 0        | down 1        | ...
 
 * check: shapes and the int16 range, the file headers;
-* stage k: each stream's samples of chunk k's 64 blocks, one run a
-  channel, into chunk k's region of the pinned int16 pile, laid out
-  stream-major, (S, C, 64, nspb) (the chunks one after another, so a chunk
-  is a contiguous slice and goes up in one copy); zeros only from a
+* stage k: each stream's samples of chunk k's blocks, one run a channel,
+  into chunk k's region of the pinned int16 pile; zeros only from a
   stream's last sample to the end of its last block, and nothing into the
-  blocks wholly past its end; chunk k + 1 is laid out only once chunk k's
-  upload and launches are queued, so the host's copy runs while the device
-  runs;
-* device: chunk k seen block-major, (64, S, C, nspb), a view of its
-  upload, which kernel 3's relayout into its time-major layout takes as it
-  is; its kernel 3 launch on (S, C) lanes, kernel 4 rebuilding the carry
-  for the next chunk, the block headers, and the chunk's bytes made
-  stream-major, (S, count * block_size);
+  blocks wholly past its end; then the chunk's upload is queued
+  (``codec.transfer.Transfer``). Chunk k + 1 is laid out only once chunk
+  k's launches and download are queued, so the host's copy runs while the
+  device runs;
+* device: chunk k's kernel 3 launch on (S, C) lanes, kernel 4 rebuilding
+  the carry for the next chunk, the block headers, and the chunk's bytes
+  made stream-major;
 * down k: those bytes in one copy into chunk k's own region of the pinned
-  output (S * B * block_size bytes, chunk after chunk), then an event;
+  output, then an event;
 * once the last chunk is launched, the host walks the chunks in order,
   waits for chunk k's event (``aad.encode_batch.wait``), and builds the byte
   strings of the streams whose last block lies in chunk k, each in one copy
@@ -44,11 +42,15 @@ blocks and more, sequential; ``codec.encoder.encode_blocks`` with a
   those ending in early chunks are built while the device still runs the
   later ones.
 
-A shorter pile, or ``parallel_blocks=True``, is one launch: the whole pile
-staged stream-major as one chunk, (S, C, B * nspb), the same way, one
-upload, one launch, one download queued behind it into pinned memory, then
-the host's wait for that download's event (``aad.encode_batch.wait``, as a
-chunk's) and the byte strings.
+The pile's layout: both pinned buffers hold the chunks one after another,
+each chunk stream-major, so that a chunk is a contiguous slice that crosses
+in one copy and a stream's samples of a chunk are one run a channel. Chunk
+k, blocks [b0, b0 + n), is (S, C, n, nspb) int16 from sample S * C * b0 *
+nspb of the pile, seen on the device block-major, (n, S, C, nspb), a view
+of its upload, which kernel 3's relayout into its time-major layout takes
+as it is; its bytes are (S, n * block_size) from byte S * b0 * block_size
+of the output (S * B * block_size bytes).
+
 The counters ``pile_chunks``,
 ``pile_chunks_staged_ahead`` (chunks laid out while an earlier chunk was
 queued on the device), ``pile_streams`` and
@@ -56,7 +58,7 @@ queued on the device), ``pile_streams`` and
 waited for the last chunk) say how often the overlap engages;
 ``pile_pad_bytes`` counts the pile's upload less its samples, and
 ``pile_zero_bytes`` the zeros the host wrote (the tails of the streams'
-last blocks), in either layout.
+last blocks).
 
 Not carried over from ``aad_tpu.codec.batch_encode``: the folded c-major
 wire32 lane layout, a TPU tiling concern (a thread is a lane here, so
@@ -81,7 +83,7 @@ from ..format.geometry import num_blocks_for
 from ..format.header import encode_header
 from ..utils.trace import count, span
 from .device import resolve_device
-from .encoder import EncodeConfig, as_int16, encode_blocks, payload_size, resolve_engine, runs_in_chunks
+from .encoder import EncodeConfig, as_int16, encode_blocks, payload_size, resolve_engine
 from .result import InvalidArgumentError
 from .transfer import Transfer
 
@@ -135,15 +137,30 @@ def encode_batch(
         S = len(arrays)
         nbs = [num_blocks_for(n, nspb) for n in lengths]
         B = max(nbs)
-        if runs_in_chunks(B, parallel_blocks):
-            host, wait, chunks, zeros = _encode_in_chunks(arrays, config, B, device)
-        else:
-            host, wait, zeros = _encode_at_once(arrays, config, B, device, parallel_blocks,
-                                                parallel_chunk_blocks, parallel_warm_passes)
-            chunks = [(0, B)]
+        xfer = Transfer(device)
+        # pinned, and torch's to reuse across calls; laid out as the module docstring says
+        pile = xfer.host((S * nch * B * nspb,), torch.int16)
+        host = xfer.host((S * B * bs,), torch.uint8)
+        zeros = []
+
+        def stage(b0: int, n: int) -> torch.Tensor:
+            with span("aad.encode_batch.stage"):
+                count("pile_chunks", 1)
+                count("pile_chunks_staged_ahead", int(b0 > 0))
+                chunk = pile[S * nch * b0 * nspb : S * nch * (b0 + n) * nspb].view(S, nch, n, nspb)
+                zeros.append(_stage_runs(arrays, chunk.numpy().reshape(S, nch, n * nspb), b0 * nspb, nspb))
+                return xfer.upload(chunk).permute(2, 0, 1, 3)
+
+        chunks = []  # (first block, blocks), in launch order
+        for b0, got in encode_blocks(stage, _valid(arrays, B, nspb, device), config, parallel_blocks,
+                                     parallel_chunk_blocks, parallel_warm_passes):
+            n = got.shape[0]
+            xfer.download(got.transpose(0, 1).reshape(S, n * bs),
+                          host[S * b0 * bs : S * (b0 + n) * bs].view(S, n * bs))
+            chunks.append((b0, n))
         count("pile_streams", S)
         count("pile_pad_bytes", (S * B * nspb - sum(lengths)) * nch * 2)  # the pile's upload less its samples
-        count("pile_zero_bytes", zeros)
+        count("pile_zero_bytes", sum(zeros))
         # each chunk's (S, n * block_size) bytes, and the streams whose last block lies in it
         flat = host.numpy()
         rows = [flat[S * b0 * bs : S * (b0 + n) * bs].reshape(S, n * bs) for b0, n in chunks]
@@ -154,7 +171,7 @@ def encode_batch(
         out = [b""] * S
         for k, done in enumerate(ending):
             with span("aad.encode_batch.wait"):
-                wait(k)
+                xfer.wait(k)
             with span("aad.encode_batch.assemble"):
                 if k < len(chunks) - 1:
                     count("pile_streams_assembled_early", len(done))
@@ -172,67 +189,6 @@ def _valid(arrays: list[np.ndarray], num_blocks: int, nspb: int, device: torch.d
     starts = torch.arange(num_blocks, device=device)[:, None] * nspb
     lengths = torch.tensor([pcm.shape[1] for pcm in arrays], device=device)
     return torch.clamp(lengths[None, :] - starts, 0, nspb).to(torch.int32)[..., None]
-
-
-def _encode_in_chunks(arrays: list[np.ndarray], config: EncodeConfig, B: int, device: torch.device):
-    """A pile that runs in chunks, each staged while the device runs the one
-    before, its bytes brought down into a flat pinned buffer (``encode_blocks``'
-    pile output). Returns (the buffer, a function that waits for chunk k's
-    bytes, the chunks' (first block, blocks) in launch order, the zero bytes
-    staged)."""
-    geo = config.geometry()
-    nspb, S, C = geo.num_samples_per_block, len(arrays), config.num_channels
-    xfer = Transfer(device)
-    # chunk after chunk, each stream-major, so that a stream's samples of a chunk
-    # go in as one run a channel (block-major, each block's run lands a chunk's
-    # S * C * nspb samples from the last, and a pile lays out a third slower);
-    # pinned, and torch's to reuse across calls
-    pile = xfer.host((S * C * B * nspb,), torch.int16)
-    host = xfer.host((S * B * geo.block_size,), torch.uint8)
-    chunks, zeros = [], []
-
-    def stage(b0: int, n: int) -> torch.Tensor:
-        with span("aad.encode_batch.stage"):
-            count("pile_chunks", 1)
-            count("pile_chunks_staged_ahead", int(b0 > 0))
-            chunk = pile[S * C * b0 * nspb : S * C * (b0 + n) * nspb].view(S, C, n, nspb)
-            zeros.append(_stage_runs(arrays, chunk.numpy().reshape(S, C, n * nspb), b0 * nspb, nspb))
-        chunks.append((b0, n))
-        return chunk
-
-    blocks = torch.empty((B, S, C, nspb), dtype=torch.int16, device="meta")  # the shape; stage gives the blocks
-    encode_blocks(blocks, _valid(arrays, B, nspb, device), config, transfer=xfer, out=host, stage=stage)
-    return host, xfer.wait, chunks, sum(zeros)
-
-
-def _encode_at_once(arrays: list[np.ndarray], config: EncodeConfig, B: int, device: torch.device,
-                    parallel_blocks: bool, parallel_chunk_blocks: int, parallel_warm_passes: int):
-    """A pile of one launch: staged whole, one copy up, one launch, its bytes
-    down in one copy queued behind it. Returns (a flat pinned buffer, S * B *
-    block_size bytes, each stream's blocks a run; a function that waits for
-    the copy down, as ``_encode_in_chunks``' does for chunk k; the zero bytes
-    staged)."""
-    geo = config.geometry()
-    nspb, S = geo.num_samples_per_block, len(arrays)
-    with span("aad.encode_batch.stage"):
-        count("pile_chunks", 1)
-        staged = torch.empty((S, config.num_channels, B * nspb), dtype=torch.int16, pin_memory=device.type == "cuda")
-        zeros = _stage_runs(arrays, staged.numpy(), 0, nspb)
-        with span("aad.h2d"):
-            count("h2d_bytes", staged.nbytes)
-            pile = staged.to(device, non_blocking=True)
-    blocks = pile.view(S, config.num_channels, B, nspb).permute(2, 0, 1, 3)  # (B, S, C, nspb)
-    rows = encode_blocks(blocks, _valid(arrays, B, nspb, device), config, parallel_blocks, parallel_chunk_blocks,
-                         parallel_warm_passes)
-    rows = rows.transpose(0, 1).contiguous()  # (S, B, block_size)
-    host = torch.empty(rows.numel(), dtype=torch.uint8, pin_memory=device.type == "cuda")
-    with span("aad.d2h"):
-        count("d2h_bytes", rows.nbytes)
-        host.view(rows.shape).copy_(rows, non_blocking=True)
-    if device.type != "cuda":
-        return host, lambda k: None, zeros  # the copy has landed
-    landed = torch.cuda.current_stream(device).record_event()
-    return host, lambda k: landed.synchronize(), zeros
 
 
 def _stage_runs(arrays: list[np.ndarray], dst: np.ndarray, s0: int, nspb: int) -> int:

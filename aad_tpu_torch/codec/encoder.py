@@ -16,7 +16,10 @@ order inside the kernel (a long stream in chunks that chain the carry).
 ``parallel_blocks=True`` selects the block-independent mode
 (``ops.encode.encode_blocks_parallel``): the blocks join the lanes, so every
 block of the stream encodes at once. Both run in :func:`encode_blocks`,
-which ``codec.batch_encode`` runs on a pile's (streams, channels) lanes.
+which takes each chunk's blocks from its caller and yields the chunk's
+bytes on the device; the copies are its callers': ``Encoder.encode``,
+``encode_payload_ondevice`` and ``codec.batch_encode``, which runs it on a
+pile's (streams, channels) lanes.
 
 ``device`` picks the engine: ``"cuda"`` launches the kernels, ``"cpu"``
 runs their plain torch versions. The bytes are those of
@@ -46,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from collections.abc import Callable
+from collections.abc import Callable, Iterator
 
 import numpy as np
 import torch
@@ -71,7 +74,6 @@ from ..format.geometry import (
 from ..format.header import HeaderInfo, encode_header, validate_header
 from ..ops.encode import BlockHeaderFields, encode_blocks_parallel, lr_to_ms
 from ..ops.fused_encode import encode_stream
-from ..ops.transitions import CodecState
 from .. import native as native_engine
 from ..utils.trace import span
 from .device import resolve_device
@@ -209,57 +211,39 @@ def _block_bytes(headers: BlockHeaderFields, data: torch.Tensor, geo: BlockGeome
 def runs_in_chunks(num_blocks: int, parallel_blocks: bool) -> bool:
     """Whether :func:`encode_blocks` runs ``num_blocks`` blocks in chunks
     that chain the carry (the sequential mode from ``_OVERLAP_MIN_BLOCKS``
-    blocks on), rather than in one launch."""
+    blocks on), rather than in one chunk."""
     return not parallel_blocks and num_blocks >= _OVERLAP_MIN_BLOCKS
 
 
 def encode_blocks(
-    blocks: torch.Tensor,
+    blocks: Callable[[int, int], torch.Tensor],
     valid: torch.Tensor,
     config: EncodeConfig,
     parallel_blocks: bool = False,
     parallel_chunk_blocks: int = 1,
     parallel_warm_passes: int = 0,
-    transfer: Transfer | None = None,
-    out: torch.Tensor | None = None,
-    stage: Callable[[int, int], torch.Tensor] | None = None,
-) -> torch.Tensor:
-    """The encode of every lane's blocks: (B, *streams, C, nspb) int16 LR
-    blocks, zero from each lane's end to the end of its last block (blocks
-    wholly past it, valid 0, may hold anything: their codes reach no kept
-    block), and ``valid`` samples per (block,
-    lane), (B,) or broadcastable to (B, *streams, C) -> (B, *streams, block_size)
-    uint8, each block's header and data region, its codes packed by kernel 3
-    (or its plain version). One stream (``Encoder``) or a pile of them
-    (``encode_batch``).
+) -> Iterator[tuple[int, torch.Tensor]]:
+    """The encode of every lane's B blocks, a chunk at a time: yields
+    (b0, rows) for each chunk, rows the (n, *lanes, block_size) uint8 bytes
+    of blocks [b0, b0 + n), each block's header and data region, its codes
+    packed by kernel 3 (or its plain version).
 
-    Mid/side is applied here, per chunk. The sequential mode is one launch
-    of kernel 3 (``ops.fused_encode.encode_stream``), or from
-    ``_OVERLAP_MIN_BLOCKS`` blocks on, chunks of ``_OVERLAP_CHUNK_BLOCKS``
-    blocks that chain the carry (state and last block; reference state chain
-    src/aad_encoder.c:470-562, 814-891): a chunk takes one launch of kernel 3
-    and, but for the last, one of kernel 4 to rebuild the carry; the codes in
-    flight stay one chunk's. ``parallel_blocks=True`` runs
-    ``ops.encode.encode_blocks_parallel``.
+    ``blocks(b0, n)`` gives blocks [b0, b0 + n) on the device, (n, *lanes,
+    C, nspb) int16 LR samples, zero from each lane's end to the end of its
+    last block (blocks wholly past it, valid 0, may hold anything: their
+    codes reach no kept block). ``valid`` holds the valid samples per
+    (block, lane) on the device, (B,) or broadcastable to (B, *lanes, C).
+    A chunk's blocks are asked for when the chunk launches, once the chunk
+    before it has been yielded.
 
-    With a ``transfer`` (``codec.transfer``), ``blocks`` is a contiguous
-    host tensor, pinned on a card, and the bytes land in ``out``, a host
-    tensor of the result's shape, which is returned (whole after
-    ``transfer.finish()``): each chunk goes up on the upload stream while
-    kernel 3 runs the chunk before, and its bytes come down as soon as they
-    are assembled, in one ``transfer.download`` call a chunk; one launch
-    goes up and comes down in one piece. A pile's ``out`` (blocks (B, S, C,
-    nspb)) is flat, S * B * block_size bytes, chunk after chunk: the bytes
-    of blocks [b0, b0 + count) are made stream-major on the device and come
-    down in one copy, as (S, count * block_size), to bytes
-    [S * b0 * block_size, S * (b0 + count) * block_size).
-    A pile's ``stage(b0, count)`` lays out blocks [b0, b0 + count) just
-    before they go up, so that the host lays out a chunk while the device
-    runs the chunks before it, and returns them stream-major, a contiguous
-    (S, C, count, nspb) host tensor, pinned on a card; they go up as that
-    and are seen on the device as (count, S, C, nspb). ``blocks`` then gives
-    only the pile's shape (a tensor on the meta device will do).
-    ``valid`` lies on ``transfer.device``.
+    Mid/side is applied here, per chunk. The sequential mode is one chunk of
+    B blocks or, from ``_OVERLAP_MIN_BLOCKS`` blocks on, chunks of
+    ``_OVERLAP_CHUNK_BLOCKS`` blocks that chain the carry (state and last
+    block; reference state chain src/aad_encoder.c:470-562, 814-891): a
+    chunk takes one launch of kernel 3 (``ops.fused_encode.encode_stream``)
+    and, but for the last, one of kernel 4 to rebuild the carry; the codes
+    in flight stay one chunk's. ``parallel_blocks=True`` is one chunk of B
+    blocks through ``ops.encode.encode_blocks_parallel``.
     """
     geo = config.geometry()
     bps, trials = config.bits_per_sample, config.num_encode_trials
@@ -271,50 +255,22 @@ def encode_blocks(
         # (reference: src/aad_encoder.c:596-603)
         return lr_to_ms(x).to(torch.int16) if config.ch_process_method == CH_PROCESS_MS else x
 
-    def up(b0: int, count: int) -> torch.Tensor:
-        if transfer is None:
-            return blocks[b0 : b0 + count]
-        if stage is None:
-            return transfer.upload(blocks[b0 : b0 + count])
-        return transfer.upload(stage(b0, count)).permute(2, 0, 1, 3)  # a pile's chunk, (count, S, C, nspb)
-
-    def put(rows: torch.Tensor, b0: int) -> None:
-        count = rows.shape[0]
-        if transfer is None:
-            out[b0 : b0 + count] = rows
-        elif rows.dim() == 3:  # a pile's (count, S, block_size), stream-major
-            S, bs = rows.shape[1:]
-            transfer.download(rows.transpose(0, 1).reshape(S, count * bs),
-                              out[S * b0 * bs : S * (b0 + count) * bs].view(S, count * bs))
-        else:
-            transfer.download(rows, out[b0 : b0 + count])
-
-    B = blocks.shape[0]
-    if not runs_in_chunks(B, parallel_blocks):
-        if parallel_blocks:
-            rows = _block_bytes(*encode_blocks_parallel(
-                ms(up(0, B)), valid, bps, trials,
-                chunk_blocks=parallel_chunk_blocks, warm_passes=parallel_warm_passes, stream=stream,
-            ), geo)
-        else:
-            rows = _block_bytes(*stream(ms(up(0, B)), valid, bps, trials, need_carry=False)[:2], geo)
-        if transfer is None:
-            return rows
-        put(rows, 0)
-        return out
-    lanes = blocks.shape[1:-1]
-    device = blocks.device if transfer is None else transfer.device
-    if transfer is None:
-        out = torch.empty((B, *lanes[:-1], geo.block_size), dtype=torch.uint8, device=device)
-    carry = (CodecState.zeros(lanes, device), torch.zeros(blocks.shape[1:], dtype=torch.int16, device=device))
-    for b0 in range(0, B, _OVERLAP_CHUNK_BLOCKS):
-        count = min(_OVERLAP_CHUNK_BLOCKS, B - b0)
+    B = valid.shape[0]
+    if parallel_blocks:
+        yield 0, _block_bytes(*encode_blocks_parallel(
+            ms(blocks(0, B)), valid, bps, trials,
+            chunk_blocks=parallel_chunk_blocks, warm_passes=parallel_warm_passes, stream=stream,
+        ), geo)
+        return
+    step = _OVERLAP_CHUNK_BLOCKS if runs_in_chunks(B, parallel_blocks) else B
+    carry = None  # a zero state and a zero block before block 0
+    for b0 in range(0, B, step):
+        n = min(step, B - b0)
         headers, data, carry = stream(
-            ms(up(b0, count)), valid[b0 : b0 + count], bps, trials,
-            carry=carry, blocks_before=b0, need_carry=b0 + count < B,
+            ms(blocks(b0, n)), valid[b0 : b0 + n], bps, trials,
+            carry=carry, blocks_before=b0, need_carry=b0 + n < B,
         )
-        put(_block_bytes(headers, data, geo), b0)
-    return out
+        yield b0, _block_bytes(headers, data, geo)
 
 
 @dataclasses.dataclass
@@ -369,8 +325,9 @@ class Encoder:
         module docstring).
 
         On the device, the PCM is written as int16 blocks straight into a
-        pinned staging buffer, and the bytes come down into a pinned buffer
-        that already holds the file header: :func:`encode_blocks` with a
+        pinned staging buffer; each chunk of :func:`encode_blocks` goes up
+        from it, and its bytes come down into a pinned buffer that already
+        holds the file header, through a
         :class:`~aad_tpu_torch.codec.transfer.Transfer`.
         """
         if resolve_engine(engine) == "native":
@@ -391,12 +348,12 @@ class Encoder:
         host = xfer.host((head + B * bs,), torch.uint8)
         host_np = host.numpy()
         host_np[:head] = np.frombuffer(file_header, dtype=np.uint8)
+        out = host[head:].view(B, bs)
         starts = torch.arange(B, device=self.device) * nspb
         valid = torch.clamp(n - starts, 0, nspb).to(torch.int32)
-        encode_blocks(
-            staged, valid, cfg, self.parallel_blocks, self.parallel_chunk_blocks, self.parallel_warm_passes,
-            transfer=xfer, out=host[head:].view(B, bs),
-        )
+        for b0, rows in encode_blocks(lambda b0, k: xfer.upload(staged[b0 : b0 + k]), valid, cfg,
+                                      self.parallel_blocks, self.parallel_chunk_blocks, self.parallel_warm_passes):
+            xfer.download(rows, out[b0 : b0 + len(rows)])
         xfer.finish()
         return host_np[: head + payload_size(geo, n)].tobytes()
 
@@ -415,11 +372,9 @@ class Encoder:
         geo = self.geometry
         num_samples = pcm.shape[1]
         blocks, valid = _pad_to_blocks(pcm, geo, 0, num_blocks_for(num_samples, geo.num_samples_per_block))
-        rows = encode_blocks(
-            blocks, valid, self.config, self.parallel_blocks,
-            self.parallel_chunk_blocks, self.parallel_warm_passes,
-        )
-        return rows.reshape(-1)[: payload_size(geo, num_samples)]
+        chunks = encode_blocks(lambda b0, n: blocks[b0 : b0 + n], valid, self.config, self.parallel_blocks,
+                               self.parallel_chunk_blocks, self.parallel_warm_passes)
+        return torch.cat([rows for _, rows in chunks]).reshape(-1)[: payload_size(geo, num_samples)]
 
 
 def _check_shape(pcm, config: EncodeConfig) -> np.ndarray:

@@ -203,7 +203,8 @@ def pile_of(nbs: list) -> list:
 def test_pile_counters_follow_the_chunks(monkeypatch, nbs, parallel):
     """With the chunk constants shrunk, the pile counters equal what the
     streams' lengths imply, and the pile waits once a chunk, each wait and
-    stage nested in ``aad.encode_batch``."""
+    stage nested in ``aad.encode_batch``; chunk k + 1 is staged only once
+    chunk k's copy down is queued."""
     monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
     monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
     pile = pile_of(nbs)
@@ -214,6 +215,8 @@ def test_pile_counters_follow_the_chunks(monkeypatch, nbs, parallel):
     for name in ("aad.encode_batch.stage", "aad.encode_batch.wait", "aad.encode_batch.assemble"):
         found = [parent_of(e, spans) for e in spans if e.name() == name]
         assert found == ["aad.encode_batch"] * want["pile_chunks"], name
+    order = [e.name() for e in spans if e.name() in ("aad.encode_batch.stage", "aad.d2h")]
+    assert order == ["aad.encode_batch.stage", "aad.d2h"] * want["pile_chunks"]
     assert out == aad_tpu_torch.encode_batch(pile, CFG, device="cpu", parallel_blocks=parallel)
 
 
@@ -224,8 +227,8 @@ def test_pile_counters_follow_the_chunks(monkeypatch, nbs, parallel):
     ([1, 7], True),  # block-parallel: one launch
 ])
 def test_pile_pad_bytes_count_the_zeros_staged(monkeypatch, nbs, parallel):
-    """``pile_pad_bytes`` counts the pile's upload less its samples, in the
-    chunked and the one-launch layout alike: every block of the pile less the
+    """``pile_pad_bytes`` counts the pile's upload less its samples, in a
+    pile of several chunks and of one alike: every block of the pile less the
     stream's own samples; the pile's upload is both."""
     monkeypatch.setattr(enc_mod, "_OVERLAP_MIN_BLOCKS", 3)
     monkeypatch.setattr(enc_mod, "_OVERLAP_CHUNK_BLOCKS", 2)
@@ -260,8 +263,8 @@ def test_pile_zero_bytes_count_the_tails_of_last_blocks(monkeypatch, nbs, parall
 @contextlib.contextmanager
 def garbage_staging(seed: int):
     """Inside the block, every int16 host tensor that ``torch.empty`` makes
-    (a pile's staging buffer among them: ``Transfer.host``'s, or the
-    one-launch pile's) holds random int16, as a reused buffer does. Yields
+    (a pile's staging buffer among them, ``Transfer.host``'s) holds random
+    int16, as a reused buffer does. Yields
     the list of (tensor, a copy of what it held at first), in the order
     made."""
     rng = np.random.default_rng(seed)
