@@ -2,9 +2,10 @@
 
 Every block of every stream is an independent decode task, so a pile of
 streams flattens into a few lane batches. Streams are grouped by what the
-kernel and the mid/side combine take as fixed (channel count, bit depth,
-block size, mid/side); each group's blocks are stacked into one byte batch,
-uploaded once and decoded by one launch (``Decoder``'s device pipeline).
+kernel takes as fixed (channel count, bit depth, block size, mid/side);
+each group's blocks are stacked into one byte batch, uploaded once and
+decoded by one launch, which parses the block headers and combines
+mid/side itself (``Decoder``'s device pipeline).
 
 Not carried over from ``aad_tpu.codec.batch``: the bucketing of the group's
 block count, which exists only to reuse jit compiles, and the u32 view of
@@ -22,12 +23,12 @@ import torch
 
 from .. import native as native_engine
 from ..constants import CH_PROCESS_MS, FILE_HEADER_SIZE
-from ..format.framing import pad_to_blocks, parse_block_headers
+from ..format.framing import pad_to_blocks
 from ..format.geometry import geometry_from_header, num_blocks_for
 from ..format.header import HeaderInfo, decode_header, validate_header
 from ..ops.fused_decode import stepsize_corrections
 from ..utils.trace import count, span
-from .decoder import _decode_lanes_pcm, resolve_engine, stream_bytes
+from .decoder import _decode_rows_pcm, resolve_engine, stream_bytes
 from .device import resolve_device
 
 
@@ -84,10 +85,8 @@ def decode_batch(
             with span("aad.h2d"):
                 count("h2d_bytes", rows.nbytes)
                 blocks = rows.to(device)
-            with span("aad.frame.blocks"):
-                states = parse_block_headers(blocks, geo)
             with span("aad.decode.pcm"):
-                pcm = _decode_lanes_pcm(blocks, states, header, start * nspb, engine, geo)
+                pcm = _decode_rows_pcm(blocks, header, start * nspb, engine, geo)
             with span("aad.d2h"):
                 count("d2h_bytes", pcm.nbytes)
                 pcm = pcm.cpu().numpy()  # (C, start * nspb) int16

@@ -3,19 +3,21 @@
 The pipeline (reference behaviour: src/aad_decoder.c:478-538):
 
     bytes --host--> file header + geometry
-          --H2D---> payload as uint8
-          --device: torch ops--> block split to (B, block_size) rows,
-                                 header parse
-          --device: kernel-----> (C*B, nspb) int16 rows
-          --device: torch ops--> mid/side combine, (C, N) view
+          --H2D---> payload as uint8, viewed as (B, block_size) block rows
+          --device: kernel-----> (C*B, nspb) int16 rows, left/right
+          --view---> (C, N)
 
 Two engines give the rows, with ``aad_tpu``'s names, so that code written
 against ``aad_tpu`` selects the same algorithm:
 
-* ``"fused"`` (and ``"auto"``): one kernel does the whole recurrence,
+* ``"fused"`` (and ``"auto"``): one kernel launch between the upload and the
+  copy down: it parses each block header, does the whole recurrence,
   reading the codes packed from each block row's data region, as they lie
-  on the wire (``ops.fused_decode``, ``csrc/decode.cu``);
-* ``"pallas"``: the two-phase engine, phase A (step indices, step sizes and
+  on the wire, and combines mid/side (``ops.fused_decode.decode_rows``,
+  ``csrc/decode.cu``); on the CPU its plain version, the header parse, the
+  recurrence and the combine as torch ops;
+* ``"pallas"``: the header parse and the mid/side combine as torch ops
+  around the two-phase engine, phase A (step indices, step sizes and
   quantised differences) as a log-depth scan of torch ops
   (``ops.decode.compute_qdiffs_prefix``) over the codes unpacked
   (``framing.block_codes``) and reordered to (T, C*B) time-major lanes,
@@ -77,8 +79,8 @@ from ..format.geometry import (
 )
 from ..format.header import HeaderInfo, decode_header, validate_header
 from ..ops import cseman as cs
-from ..ops.decode import compute_qdiffs_prefix
-from ..ops.fused_decode import decode_lanes, stepsize_corrections
+from ..ops.decode import compute_qdiffs_prefix, ms_to_lr
+from ..ops.fused_decode import decode_lanes, decode_rows, stepsize_corrections
 from ..ops.lms import lms_lanes
 from .. import native as native_engine
 from ..utils import debug
@@ -124,19 +126,14 @@ def resolve_engine(engine: str) -> str:
 
 
 def _decode_lanes_pcm(
-    lanes: torch.Tensor,
+    codes: torch.Tensor,
     states: BlockStates,
     header: HeaderInfo,
     num_samples: int,
     engine: str,
-    geo: BlockGeometry | None = None,
 ) -> torch.Tensor:
-    """Block lanes + per-block (B, C, ...) states -> (C, num_samples) int16
-    PCM, by the resolved ``engine`` ("fused" or "pallas").
-
-    With ``geo``, ``lanes`` is the (B, block_size) block rows, their codes
-    packed in the data regions; without, the (B, C, T) codes one a byte.
-    """
+    """(B, C, T) codes one a byte + per-block (B, C, ...) states -> (C,
+    num_samples) int16 PCM, by the resolved ``engine`` ("fused" or "pallas")."""
     B, C = states.step_index.shape
     # channel-major lanes: lane c * B + b is channel c of block b
     step_index = states.step_index.t().reshape(C * B).contiguous()
@@ -144,27 +141,35 @@ def _decode_lanes_pcm(
     weight = states.weight.transpose(0, 1).reshape(C * B, 4).contiguous()
     bps = header.bits_per_sample
     if engine == "pallas":
-        # phase A runs along time, so it takes the codes unpacked and
-        # time-major; it sees the parse clamp, as aad_tpu/ops/decode.py:133
-        # applies it
-        codes = lanes if geo is None else block_codes(lanes, geo)
+        # phase A runs along time, so it takes the codes time-major; it sees
+        # the parse clamp, as aad_tpu/ops/decode.py:133 applies it
         codes_tm = codes.permute(2, 1, 0).reshape(codes.shape[-1], C * B).contiguous()
-        del codes
         qdiffs = compute_qdiffs_prefix(codes_tm, cs.clip(step_index, 0, STEP_INDEX_MAX), bps, dim=0)
         del codes_tm
         rows = lms_lanes(qdiffs, history, weight)
-    elif geo is None:
-        # codes one a byte: the lanes' rows of them
-        codes = lanes.transpose(0, 1).reshape(C * B, lanes.shape[-1]).contiguous()
-        rows = decode_lanes(codes, step_index, history, weight, bps)
     else:
-        # the kernel reads the packed data regions of the rows as they are
-        rows = decode_lanes(lanes.contiguous(), step_index, history, weight, bps, geo)  # (C * B, nspb)
-    if header.ch_process_method == CH_PROCESS_MS:
-        mid = rows[:B].to(torch.int32)
-        side = rows[B:].to(torch.int32)
-        rows = torch.cat([cs.clip16(mid + side), cs.clip16(mid - side)]).to(torch.int16)
+        # codes one a byte: the lanes' rows of them
+        rows = decode_lanes(codes.transpose(0, 1).reshape(C * B, codes.shape[-1]).contiguous(),
+                            step_index, history, weight, bps)
+    if header.ch_process_method == CH_PROCESS_MS:  # rows [0, B) mid, [B, 2B) side
+        rows = ms_to_lr(rows.view(2, -1)).to(torch.int16)
     return rows.view(C, -1)[:, :num_samples]
+
+
+def _decode_rows_pcm(
+    blocks: torch.Tensor, header: HeaderInfo, num_samples: int, engine: str, geo: BlockGeometry
+) -> torch.Tensor:
+    """(B, block_size) block rows -> (C, num_samples) int16 PCM, by the
+    resolved ``engine``. ``"fused"`` is one call of ``decode_rows``: on a
+    card one launch of kernel 1, which parses the block headers, reads the
+    packed codes and combines mid/side itself; on the CPU its plain
+    version. ``"pallas"`` parses the headers and unpacks the codes here,
+    for its phase A."""
+    if engine == "pallas":
+        return _decode_lanes_pcm(block_codes(blocks, geo), parse_block_headers(blocks, geo), header,
+                                 num_samples, engine)
+    rows = decode_rows(blocks.contiguous(), geo, header.ch_process_method == CH_PROCESS_MS)  # (C * B, nspb)
+    return rows.view(geo.num_channels, -1)[:, :num_samples]
 
 
 @dataclasses.dataclass
@@ -275,8 +280,8 @@ class Decoder:
         The blocks go in chunks of ``_TRANSFER_CHUNK_BLOCKS``
         (``codec.transfer``): a chunk's bytes are copied into a pinned
         staging buffer and go up on the upload stream; its blocks decode on
-        the compute stream (framing, kernel 1, or the unpack, phase A and
-        kernel 5, the mid/side combine) and widen to int32 there; its
+        the compute stream (kernel 1, or the header parse, the unpack,
+        phase A, kernel 5 and the mid/side combine) and widen to int32 there; its
         samples come down into the pinned output as soon as they are done,
         while the next chunk goes up. Blocks are self-contained (reference:
         src/aad_decoder.c:363-380), so chunk boundaries change nothing.
@@ -321,9 +326,8 @@ class Decoder:
         """Decode the first ``nblocks`` blocks to (C, num_samples) int16."""
         with span("aad.frame.blocks"):
             blocks = pad_to_blocks(payload, nblocks, self.geometry)
-            states = parse_block_headers(blocks, self.geometry)
         with span("aad.decode.pcm"):
-            return _decode_lanes_pcm(blocks, states, self.header, num_samples, self.engine, self.geometry)
+            return _decode_rows_pcm(blocks, self.header, num_samples, self.engine, self.geometry)
 
     def decode_time_range(self, payload, start_seconds: float, end_seconds: float) -> torch.Tensor:
         """Random-access decode of a time window (seek support).

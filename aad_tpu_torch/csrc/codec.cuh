@@ -21,6 +21,7 @@ constexpr int32_t kTablesHalf = 1 << 3;  // TABLES_FLOAT_0_5
 constexpr int kTablesDigits = 4;         // TABLES_FLOAT_DIGITS
 constexpr int32_t kStepIndexMax = 4080;  // STEP_INDEX_MAX
 constexpr int kStepTableSize = 256;      // STEPSIZE_TABLE_SIZE
+constexpr int kChannelHeaderBytes = 2 + 4 * kFilterOrder;  // a channel's block header: 18 bytes
 
 // Copy a table into shared memory, all threads of the block taking part.
 __device__ __forceinline__ void stage_table(int32_t* dst, const int32_t* __restrict__ src, int n) {
@@ -169,10 +170,29 @@ __device__ __forceinline__ uint32_t pack_pair(int32_t lo, int32_t hi) {
          (static_cast<uint32_t>(static_cast<uint16_t>(hi)) << 16);
 }
 
-// Write positions [p0, p1) of the CTA's rows from a tile.
+// Mid/side to left/right of one sample pair (reference: src/aad_decoder.c:458-470),
+// in int32 and clipped: left = mid + side, right = mid - side.
+__device__ __forceinline__ int32_t lr_sample(int32_t mid, int32_t side, bool left) {
+  return clip16(left ? mid + side : mid - side);
+}
+
+// The low and the high sample of a word of two.
+__device__ __forceinline__ int32_t lo16(uint32_t w) { return static_cast<int16_t>(w & 0xFFFF); }
+__device__ __forceinline__ int32_t hi16(uint32_t w) { return static_cast<int16_t>(w >> 16); }
+
+__device__ __forceinline__ uint32_t lr_word(uint32_t mid, uint32_t side, bool left) {
+  return pack_pair(lr_sample(lo16(mid), lo16(side), left), lr_sample(hi16(mid), hi16(side), left));
+}
+
+// Write positions [p0, p1) of the CTA's rows from a tile. kMidSide: the
+// tile's first half of rows holds mid, the second half side, row i and row
+// i + kLanesPerBlock / 2 the two channels of one block (decode.cu's thread
+// map); row i < kLanesPerBlock / 2 is written as left, the others as right.
+template <bool kMidSide = false>
 __device__ __forceinline__ void write_tile(const OutTile& tile, int16_t* __restrict__ out, const RowMap& rows,
                                            int row_len, int p0, int p1) {
   constexpr int kWarps = kLanesPerBlock / 32;
+  constexpr int kHalf = kLanesPerBlock / 2;
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 32;
   if (row_len % 2 == 0) {  // p0 is even too: rows of 4-byte words
@@ -181,29 +201,44 @@ __device__ __forceinline__ void write_tile(const OutTile& tile, int16_t* __restr
     for (int i = warp; i < kLanesPerBlock; i += kWarps) {
       if (!rows.has(i)) continue;
       uint32_t* dst = o + (rows.row(i) * row_len + p0) / 2;
-      for (int w = t; w < n; w += 32) dst[w] = tile[i][w];
+      if constexpr (kMidSide) {
+        const uint32_t* mid = tile[i % kHalf];
+        const uint32_t* side = tile[i % kHalf + kHalf];
+        const bool left = i < kHalf;
+        for (int w = t; w < n; w += 32) dst[w] = lr_word(mid[w], side[w], left);
+      } else {
+        for (int w = t; w < n; w += 32) dst[w] = tile[i][w];
+      }
     }
   } else {
     const int n = p1 - p0;
     for (int i = warp; i < kLanesPerBlock; i += kWarps) {
       if (!rows.has(i)) continue;
-      const uint16_t* src = reinterpret_cast<const uint16_t*>(tile[i]);
       int16_t* dst = out + rows.row(i) * row_len + p0;
-      for (int k = t; k < n; k += 32) dst[k] = static_cast<int16_t>(src[k]);
+      if constexpr (kMidSide) {
+        const int16_t* mid = reinterpret_cast<const int16_t*>(tile[i % kHalf]);
+        const int16_t* side = reinterpret_cast<const int16_t*>(tile[i % kHalf + kHalf]);
+        const bool left = i < kHalf;
+        for (int k = t; k < n; k += 32) dst[k] = static_cast<int16_t>(lr_sample(mid[k], side[k], left));
+      } else {
+        const uint16_t* src = reinterpret_cast<const uint16_t*>(tile[i]);
+        for (int k = t; k < n; k += 32) dst[k] = static_cast<int16_t>(src[k]);
+      }
     }
   }
 }
 
 // Run every thread of the CTA over its row of num_steps + 4 positions,
-// staging the output through `tiles`. All threads of the CTA must call it,
-// those without a row too: they take part in the barriers and the
-// cooperative copies and compute nothing. The lane type provides
+// staging the output through `tiles` (kMidSide: as write_tile writes them).
+// All threads of the CTA must call it, those without a row too: they take
+// part in the barriers and the cooperative copies and compute nothing. The
+// lane type provides
 //   head(row)      the four head samples, as two words at row[0..1];
 //   begin(j)       set up tile j's steps (threads with a row);
 //   step(j, t, k)  the sample of step t, the k-th step of tile j;
 //   fetch(j)       start the CTA's copies of tile j's inputs (all threads);
 //   wait()         wait for this thread's copies.
-template <class Lane>
+template <bool kMidSide = false, class Lane>
 __device__ __forceinline__ void run_rows(Lane& lane, OutTile* tiles, int16_t* __restrict__ out,
                                          const RowMap& rows, int num_steps) {
   const int row_len = num_steps + kFilterOrder;
@@ -239,7 +274,7 @@ __device__ __forceinline__ void run_rows(Lane& lane, OutTile* tiles, int16_t* __
     // tile j is complete and tile j + 1's inputs have landed; every thread
     // has also finished writing out tile j - 1, so its buffer is free
     __syncthreads();
-    write_tile(tiles[j & 1], out, rows, row_len, p0, p1);
+    write_tile<kMidSide>(tiles[j & 1], out, rows, row_len, p0, p1);
   }
 }
 

@@ -13,8 +13,16 @@
 // block_size) block rows of framing.split_blocks, and it takes each lane's
 // codes from its block's data region, channels interleaved unit by unit
 // (codec.cuh::CodeUnit: 4-bit 1 byte and 2 codes a channel, 2-bit 1 and 4,
-// 3-bit 3 and 8). The same kernel reads codes one a byte, (L, T) rows with
-// no header: the codes-level API (ops/decode.py::decode_blocks).
+// 3-bit 3 and 8). On block rows it also reads each lane's state from its
+// block header (framing.parse_block_headers' parse, the step-index clamp
+// included), and for a mid/side stream writes left and right in place of
+// mid and side (the torch combine of codec/decoder.py on the CPU): a CTA
+// holds both channels of its blocks, so the flush pairs them. A decode of
+// block rows is then one launch between the upload and the copy down, where
+// about 23 torch kernels (the header parse, three lane reorders, the
+// combine) took 81% of a live push's host time. The same kernel reads codes
+// one a byte, (L, T) rows with no header, their states from the caller: the
+// codes-level API (ops/decode.py::decode_blocks).
 //
 // What bounds it on an H100: instruction issue. Its compiled step loop
 // (4-bit, packed) issues 39.1 instructions a sample, 17.5 of them on the
@@ -147,16 +155,45 @@ struct DecodeLane {
   }
 };
 
-template <int BPS, bool kPacked, int C>
+// One channel's block header, as framing.parse_block_headers reads it
+// (reference: src/aad_decoder.c:363-380): nine big-endian u16 fields at p,
+// the tag (step index << 4 | weight shift), then weight and history of each
+// tap. The weights are stored shifted right; the shift is applied again.
+struct LaneHeader {
+  Lms lms;
+  int32_t idx;
+};
+
+__device__ __forceinline__ int32_t header_u16(const uint8_t* p, int k) {
+  return (static_cast<int32_t>(p[2 * k]) << 8) | p[2 * k + 1];
+}
+
+__device__ __forceinline__ LaneHeader parse_header(const uint8_t* p) {
+  const int32_t tag = header_u16(p, 0);
+  const int shift = tag & 0xF;
+  const auto tap = [&](int k) { return static_cast<int32_t>(static_cast<int16_t>(header_u16(p, k))); };
+  const auto weight = [&](int k) { return static_cast<int32_t>(static_cast<uint32_t>(tap(k)) << shift); };
+  // Parse clamp: wire indices in (4080, 4095] pin to the table maximum, as
+  // at every header parse; the adaptation keeps idx in [0, 4080].
+  return {Lms{tap(2), tap(4), tap(6), tap(8), weight(1), weight(3), weight(5), weight(7)},
+          min(tag >> kTablesDigits, kStepIndexMax)};
+}
+
+// kPacked: the lanes' states come from the block headers at the head of
+// each row (C * kChannelHeaderBytes bytes, channel c's at c * 18), and
+// kMidSide writes left/right from the two channels' rows (codec.cuh::
+// write_tile). Unpacked: from step_index, history and weight.
+template <int BPS, bool kPacked, int C, bool kMidSide>
 __global__ void __launch_bounds__(kLanesPerBlock)
     decode_lanes_kernel(const uint8_t* __restrict__ bytes,      // (B, block_bytes) rows, `skew` bytes in
-                        const int32_t* __restrict__ step_index, // (L,), lane c * B + b
-                        const int32_t* __restrict__ history,    // (L, 4), newest first
-                        const int32_t* __restrict__ weight,     // (L, 4)
+                        const int32_t* __restrict__ step_index, // (L,), lane c * B + b; unpacked only
+                        const int32_t* __restrict__ history,    // (L, 4), newest first; unpacked only
+                        const int32_t* __restrict__ weight,     // (L, 4); unpacked only
                         const int32_t* __restrict__ step_table, // (256,)
                         const int32_t* __restrict__ index_table,// (2**BPS,)
                         int16_t* __restrict__ out,              // (L, T + 4)
                         int skew, int num_blocks, int num_codes, int block_bytes, int data_offset) {
+  static_assert(!kMidSide || (kPacked && C == 2), "mid/side: packed stereo rows");
   using Lane = DecodeLane<BPS, kPacked, C>;
   __shared__ int32_t s_step[kStepTableSize];
   __shared__ int32_t s_delta[1 << BPS];
@@ -171,28 +208,57 @@ __global__ void __launch_bounds__(kLanesPerBlock)
   const int channel = threadIdx.x / Lane::kBlocks;
   const int b = b0 + slot;
   const bool active = b < num_blocks;
-  const int64_t row = active ? skew + static_cast<int64_t>(b) * block_bytes + data_offset : -1;
+  const int64_t num_bytes = skew + static_cast<int64_t>(num_blocks) * block_bytes;
+  const int64_t start = skew + static_cast<int64_t>(b) * block_bytes;  // the block's row in `bytes`
+  const int64_t row = active ? start + data_offset : -1;
   if (channel == 0) s_row[slot] = row;
+
+  // kPacked: the CTA's block headers, each from the 4-byte boundary at or
+  // before it, copied to shared memory in words, a warp taking consecutive
+  // words of a row. On an H100 a thread loading its own 18 bytes (a warp
+  // load touching 32 rows) made the bench stream's launch 2.6% slower than
+  // with the states given (0.2177 against 0.2122 ms); staged, 1.3% (0.2142
+  // against 0.2115 ms).
+  constexpr int kHeadWords = kPacked ? (C * kChannelHeaderBytes + 3) / 4 + 1 : 1;
+  __shared__ uint32_t s_head[Lane::kBlocks * kHeadWords];
+  if constexpr (kPacked) {
+    for (int i = threadIdx.x; i < Lane::kBlocks * kHeadWords; i += kLanesPerBlock) {
+      const int r = i / kHeadWords;
+      const int64_t src =
+          ((skew + static_cast<int64_t>(b0 + r) * block_bytes) & ~int64_t{3}) + 4 * (i - r * kHeadWords);
+      if (b0 + r < num_blocks && src < num_bytes) {
+        cp_async4(&s_head[i], bytes + src, static_cast<int>(min(int64_t{4}, num_bytes - src)));
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  }
   __syncthreads();
 
-  // Parse clamp: wire indices in (4080, 4095] pin to the table maximum, as
-  // at every header parse; the adaptation keeps idx in [0, 4080].
-  const int lane = channel * num_blocks + b;
-  Lane d{load_lms(history, weight, lane, active),
-         active ? clip(step_index[lane], 0, kStepIndexMax) : 0,
-         s_step, s_delta, s_codes, s_row, bytes,
-         skew + static_cast<int64_t>(num_blocks) * block_bytes, row, num_codes, slot,
+  LaneHeader state{};
+  if (active) {
+    if constexpr (kPacked) {
+      const auto* head = reinterpret_cast<const uint8_t*>(s_head + slot * kHeadWords) + (start & 3);
+      state = parse_header(head + channel * kChannelHeaderBytes);
+    } else {
+      const int lane = channel * num_blocks + b;
+      state = {load_lms(history, weight, lane, true), clip(step_index[lane], 0, kStepIndexMax)};
+    }
+  }
+
+  Lane d{state.lms, state.idx, s_step, s_delta, s_codes, s_row, bytes, num_bytes, row, num_codes, slot,
          channel * Lane::Unit::kBytes, nullptr, 0};
   // thread c * kBlocks + i writes row c * B + b0 + i
-  run_rows(d, s_out, out, RowMap{b0, num_blocks, Lane::kBlocks, min(Lane::kBlocks, num_blocks - b0)}, num_codes);
+  run_rows<kMidSide>(d, s_out, out, RowMap{b0, num_blocks, Lane::kBlocks, min(Lane::kBlocks, num_blocks - b0)},
+                     num_codes);
 }
 
-template <int BPS, bool kPacked, int C>
+template <int BPS, bool kPacked, int C, bool kMidSide>
 cudaError_t launch_decode(const void* bytes, int skew, const void* step_index, const void* history,
                           const void* weight, const void* step_table, const void* index_table, void* out,
                           int num_blocks, int num_codes, int block_bytes, int data_offset, int device,
                           cudaStream_t stream) {
-  const auto kernel = decode_lanes_kernel<BPS, kPacked, C>;
+  const auto kernel = decode_lanes_kernel<BPS, kPacked, C, kMidSide>;
   static std::atomic<uint64_t> carveout_set{0};  // one set for each instance
   const cudaError_t err = prefer_shared_once(kernel, device, carveout_set);
   if (err != cudaSuccess) return err;
@@ -221,11 +287,14 @@ extern "C" {
 
 // bytes: the (B, block_bytes) rows from the 4-byte boundary at or before
 // them, `skew` bytes before the first row; each row's codes start at
-// data_offset, packed (channels 1 or 2) or one a byte (channels 1).
+// data_offset. packed: whole blocks of 1 or 2 channels, the lanes' states
+// parsed from their headers (step_index, history and weight unused), the
+// codes packed, mid_side turning a stereo block's rows into left/right;
+// else codes one a byte (channels 1), the states from the three arrays.
 int aad_decode_lanes(const void* bytes, int skew, const void* step_index, const void* history,
                      const void* weight, const void* step_table, const void* index_table, void* out,
                      int num_blocks, int num_channels, int num_codes, int block_bytes, int data_offset,
-                     int bits_per_sample, int packed, int device, void* stream) {
+                     int bits_per_sample, int packed, int mid_side, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -235,9 +304,10 @@ int aad_decode_lanes(const void* bytes, int skew, const void* step_index, const 
       return launch(bytes, skew, step_index, history, weight, step_table, index_table, out, num_blocks,
                     num_codes, block_bytes, data_offset, device, s);
     };
-    if (packed && num_channels == 1) return args(aad::launch_decode<kBps, true, 1>);
-    if (packed && num_channels == 2) return args(aad::launch_decode<kBps, true, 2>);
-    if (!packed && num_channels == 1) return args(aad::launch_decode<kBps, false, 1>);
+    if (packed && num_channels == 1 && !mid_side) return args(aad::launch_decode<kBps, true, 1, false>);
+    if (packed && num_channels == 2 && !mid_side) return args(aad::launch_decode<kBps, true, 2, false>);
+    if (packed && num_channels == 2 && mid_side) return args(aad::launch_decode<kBps, true, 2, true>);
+    if (!packed && num_channels == 1 && !mid_side) return args(aad::launch_decode<kBps, false, 1, false>);
     return cudaErrorInvalidValue;
   }));
 }

@@ -44,8 +44,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # bytes, skew, step_index, history, weight, step_table, index_table, out,
     # num_blocks, num_channels, num_codes, block_bytes, data_offset,
-    # bits_per_sample, packed, device, stream
-    "aad_decode_lanes": (_P, _I) + (_P,) * 6 + (_I,) * 8 + (_P,),
+    # bits_per_sample, packed, mid_side, device, stream
+    "aad_decode_lanes": (_P, _I) + (_P,) * 6 + (_I,) * 9 + (_P,),
     # step_table, out, device, stream
     "aad_stepsize_probe": (_P, _P, _I, _P),
     # samples, prev0, valid, step_index, history, weight, step_table,

@@ -1,16 +1,23 @@
 """Wrappers of the CUDA decode kernels, each beside its plain torch version.
 
-* :func:`decode_lanes` -> ``aad_decode_lanes`` (``csrc/decode.cu``), the
-  port of the fused Pallas kernel ``aad_tpu/ops/pallas_decode.py::_make_kernel``:
-  the whole decode recurrence of every block x channel lane in one launch,
-  reading the codes packed from each block's data region, as the TPU kernel
-  reads its packed code words (or one a byte, for the codes-level API).
+* :func:`decode_rows` -> ``aad_decode_lanes`` (``csrc/decode.cu``), the port
+  of the fused Pallas kernel ``aad_tpu/ops/pallas_decode.py::_make_kernel``
+  and of the device framing around it: the whole decode of every block x
+  channel lane of a batch of block rows in one launch. The kernel parses
+  each lane's block header, reads its codes packed from the block's data
+  region, as the TPU kernel reads its packed code words, and writes a
+  mid/side stream's rows as left and right.
+* :func:`decode_lanes` -> the same kernel on (L, T) codes one a byte, the
+  lanes' states from the caller: the codes-level API.
 * :func:`stepsize_corrections` -> ``aad_stepsize_probe``, the port of the
   Pallas probe ``aad_tpu/ops/pallas_decode.py::stepsize_corrections``.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Nothing falls back. Each wrapper counts its
-kernel launches in :data:`launches`.
+kernel launches in :data:`launches`; :func:`decode_rows` also counts, while
+a profiler records (``utils.trace``), the blocks whose headers the kernel
+parsed (``k1_rows_parsed``) and, of them, those whose left/right it
+combined (``k1_rows_ms``).
 
 Not carried over from the TPU kernel, because they exist only for the TPU:
 
@@ -21,7 +28,8 @@ Not carried over from the TPU kernel, because they exist only for the TPU:
   bytes of each block's next 64 steps in shared memory;
 * the R-fold lane interleave, which gave the TPU's scheduler independent
   chains; on the GPU the warp scheduler interleaves warps instead;
-* the packed sample-pair output: the kernel writes int16 rows directly.
+* the packed sample-pair output and its mid/side combine in word space: the
+  kernel writes int16 rows directly, left and right already combined.
 """
 
 from __future__ import annotations
@@ -33,11 +41,12 @@ import torch
 
 from ..codec.device import resolve_device
 from ..constants import FILTER_ORDER, STEPSIZE_TABLE_SIZE, TABLES_FLOAT_DIGITS
+from ..format.framing import parse_block_headers
 from ..format.geometry import BlockGeometry
 from ..tables import STEPSIZE_TABLE
-from ..utils.trace import span
+from ..utils.trace import count, span
 from . import _build, bitpack
-from .decode import decode_blocks_reference
+from .decode import decode_blocks_reference, ms_to_lr
 from .transitions import index_table, stepsize_from_index, stepsize_table
 
 DECODE_KERNEL = "aad_decode_lanes"
@@ -60,48 +69,56 @@ def _require(cond: bool, what: str) -> None:
 
 
 def decode_lanes_reference(
-    rows: torch.Tensor,
+    codes: torch.Tensor,
     step_index: torch.Tensor,
     history: torch.Tensor,
     weight: torch.Tensor,
     bits_per_sample: int,
-    geo: BlockGeometry | None = None,
 ) -> torch.Tensor:
-    """Plain version of ``aad_decode_lanes``, on any device: the codes
-    unpacked (``bitpack.unpack_codes``), then the recurrence of ``ops.decode``
-    (phase A then phase B, vectorised over lanes, looping over time); inputs
-    and output as :func:`decode_lanes`.
+    """Plain version of ``aad_decode_lanes`` on codes one a byte, on any
+    device: the recurrence of ``ops.decode`` (phase A then phase B,
+    vectorised over lanes, looping over time); inputs and output as
+    :func:`decode_lanes`.
     """
-    if geo is None:
-        codes = rows[:, None, :]  # (L, 1, T)
-    else:
-        codes = bitpack.unpack_codes(rows[:, geo.header_bytes : geo.header_bytes + geo.data_bytes], geo)
-    B, C, T = codes.shape
-    lanes = codes.transpose(0, 1).reshape(C * B, T)  # lane c * B + b: channel c of block b
-    samples = decode_blocks_reference(lanes, step_index, weight, history, bits_per_sample=bits_per_sample)
+    samples = decode_blocks_reference(codes, step_index, weight, history, bits_per_sample=bits_per_sample)
     return samples.to(torch.int16)
 
 
+def decode_rows_reference(rows: torch.Tensor, geo: BlockGeometry, mid_side: bool = False) -> torch.Tensor:
+    """Plain version of ``aad_decode_lanes`` on block rows, on any device,
+    and the CPU's decode path: the block headers parsed
+    (``framing.parse_block_headers``), the codes unpacked
+    (``bitpack.unpack_codes``), the lanes decoded by
+    :func:`decode_lanes_reference`, then, for ``mid_side``, left = mid +
+    side and right = mid - side in int32, clipped to int16; inputs and
+    output as :func:`decode_rows`.
+    """
+    states = parse_block_headers(rows, geo)
+    codes = bitpack.unpack_codes(rows[:, geo.header_bytes : geo.header_bytes + geo.data_bytes], geo)
+    B, C = codes.shape[:2]
+
+    def lanes(a):  # (B, C, ...) -> (C * B, ...): lane c * B + b is channel c of block b
+        return a.transpose(0, 1).reshape(C * B, *a.shape[2:]).contiguous()
+
+    rows = decode_lanes_reference(lanes(codes), lanes(states.step_index), lanes(states.history),
+                                  lanes(states.weight), geo.bits_per_sample)
+    if mid_side:  # rows [0, B) mid, [B, 2B) side
+        rows = ms_to_lr(rows.view(2, -1)).to(torch.int16).view(rows.shape)
+    return rows
+
+
 def decode_lanes(
-    rows: torch.Tensor,
+    codes: torch.Tensor,
     step_index: torch.Tensor,
     history: torch.Tensor,
     weight: torch.Tensor,
     bits_per_sample: int,
-    geo: BlockGeometry | None = None,
 ) -> torch.Tensor:
-    """Decode the L independent lanes of a batch of blocks, T codes each.
-
-    With ``geo``, ``rows`` is (B, geo.block_size) uint8 block rows, as
-    ``framing.split_blocks`` gives them, and the codes are read packed from
-    each row's data region (at ``geo.header_bytes``, the channels' units
-    interleaved, as on the wire): L = C * B lanes, lane ``c * B + b`` channel
-    ``c`` of block ``b`` (channel-major, so the rows of one channel come out
-    consecutive), T = ``geo.codes_per_block``. Without, ``rows`` is (L, T)
-    uint8 codes one a byte, lane ``l`` row ``l``, each below
-    2**bits_per_sample: the codes-level API (``ops.decode.decode_blocks``).
+    """Decode L independent lanes of T codes each, one a byte: the
+    codes-level API (``ops.decode.decode_blocks``).
 
     Args:
+      codes:      (L, T) uint8, lane ``l`` row ``l``, each below 2**bits_per_sample.
       step_index: (L,) int32 initial Q4 step index (clamped to [0, 4080]).
       history:    (L, 4) int32 initial history, newest first.
       weight:     (L, 4) int32 initial weights.
@@ -110,16 +127,9 @@ def decode_lanes(
       followed by the T decoded samples.
     """
     _require(bits_per_sample in (2, 3, 4), f"bits_per_sample {bits_per_sample}")
-    _require(rows.dim() == 2, f"rows must be 2-D, got {tuple(rows.shape)}")
-    _require(rows.dtype == torch.uint8, f"rows must be uint8, got {rows.dtype}")
-    if geo is None:
-        (L, T), C = rows.shape, 1
-        B, block_bytes, data_offset = L, T, 0
-    else:
-        _require(geo.bits_per_sample == bits_per_sample, f"geometry of {geo.bits_per_sample} bits")
-        _require(rows.shape[1] == geo.block_size, f"rows must be (B, {geo.block_size}), got {tuple(rows.shape)}")
-        B, C, T = rows.shape[0], geo.num_channels, geo.codes_per_block
-        L, block_bytes, data_offset = B * C, geo.block_size, geo.header_bytes
+    _require(codes.dim() == 2, f"codes must be 2-D, got {tuple(codes.shape)}")
+    _require(codes.dtype == torch.uint8, f"codes must be uint8, got {codes.dtype}")
+    L, T = codes.shape
     for name, t, shape in (
         ("step_index", step_index, (L,)),
         ("history", history, (L, FILTER_ORDER)),
@@ -127,34 +137,76 @@ def decode_lanes(
     ):
         _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
         _require(tuple(t.shape) == shape, f"{name} must be {shape}, got {tuple(t.shape)}")
-        _require(t.device == rows.device, f"{name} is on {t.device}, rows on {rows.device}")
+        _require(t.device == codes.device, f"{name} is on {t.device}, codes on {codes.device}")
 
+    device = codes.device
+    if device.type == "cpu":
+        return decode_lanes_reference(codes, step_index, history, weight, bits_per_sample)
+    _require(device.type == "cuda", f"no kernel for device {device}")
+    for name, t in (("codes", codes), ("step_index", step_index), ("history", history), ("weight", weight)):
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    out = torch.empty((L, T + FILTER_ORDER), dtype=torch.int16, device=device)
+    if L:
+        _launch(codes, (step_index, history, weight), out, bits_per_sample, L, 1, T, T, 0, False)
+    return out
+
+
+def decode_rows(rows: torch.Tensor, geo: BlockGeometry, mid_side: bool = False) -> torch.Tensor:
+    """Decode a batch of whole blocks, as they lie on the wire.
+
+    ``rows`` is (B, geo.block_size) uint8 block rows, as
+    ``framing.pad_to_blocks`` gives them. Each block x channel lane starts
+    from the state in its block header and decodes the T =
+    ``geo.codes_per_block`` codes packed in the block's data region (the
+    channels' units interleaved, as on the wire). ``mid_side`` (a stream
+    whose ``ch_process_method`` is mid/side; two channels) turns each
+    block's mid and side into left and right.
+
+    Returns:
+      (C * B, T + 4) int16, lane ``c * B + b`` channel ``c`` of block ``b``
+      (channel-major, so the rows of one channel come out consecutive): the
+      four header samples (history reversed), then the T decoded samples;
+      left and right for ``mid_side``.
+    """
+    _require(rows.dim() == 2, f"rows must be 2-D, got {tuple(rows.shape)}")
+    _require(rows.dtype == torch.uint8, f"rows must be uint8, got {rows.dtype}")
+    _require(rows.shape[1] == geo.block_size, f"rows must be (B, {geo.block_size}), got {tuple(rows.shape)}")
+    _require(not mid_side or geo.num_channels == 2, f"mid/side of {geo.num_channels} channel(s)")
     device = rows.device
     if device.type == "cpu":
-        return decode_lanes_reference(rows, step_index, history, weight, bits_per_sample, geo)
+        return decode_rows_reference(rows, geo, mid_side)
     _require(device.type == "cuda", f"no kernel for device {device}")
-    for name, t in (("rows", rows), ("step_index", step_index),
-                    ("history", history), ("weight", weight)):
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(rows.is_contiguous(), "rows must be contiguous")
+    B, C, T = rows.shape[0], geo.num_channels, geo.codes_per_block
+    out = torch.empty((C * B, T + FILTER_ORDER), dtype=torch.int16, device=device)
+    if B:
+        _launch(rows, None, out, geo.bits_per_sample, B, C, T, geo.block_size, geo.header_bytes, mid_side)
+        count("k1_rows_parsed", B)
+        if mid_side:
+            count("k1_rows_ms", B)
+    return out
 
-    out = torch.empty((L, T + FILTER_ORDER), dtype=torch.int16, device=device)
-    if L == 0:
-        return out
+
+def _launch(src: torch.Tensor, states, out: torch.Tensor, bits_per_sample: int, num_blocks: int,
+            num_channels: int, num_codes: int, block_bytes: int, data_offset: int, mid_side: bool) -> None:
+    """One launch of ``aad_decode_lanes``: on block rows where ``states`` is
+    None (the kernel parses their headers), else on codes one a byte with
+    ``states`` = (step_index, history, weight)."""
+    device = src.device
+    si, hi, wt = (0, 0, 0) if states is None else (t.data_ptr() for t in states)
     # the kernel copies 4-byte words from 4-byte boundaries: it takes the
-    # rows from the boundary at or before them, and how far before
-    skew = rows.data_ptr() % 4
+    # bytes from the boundary at or before them, and how far before
+    skew = src.data_ptr() % 4
     with span("aad.launch.decode_lanes"):
         lib = _build.library()
         err = lib.aad_decode_lanes(
-            rows.data_ptr() - skew, skew, step_index.data_ptr(), history.data_ptr(),
-            weight.data_ptr(), stepsize_table(device).data_ptr(),
+            src.data_ptr() - skew, skew, si, hi, wt, stepsize_table(device).data_ptr(),
             index_table(bits_per_sample, device).data_ptr(), out.data_ptr(),
-            B, C, T, block_bytes, data_offset, bits_per_sample, int(geo is not None),
-            *_build.launch_target(device),
+            num_blocks, num_channels, num_codes, block_bytes, data_offset, bits_per_sample,
+            int(states is None), int(mid_side), *_build.launch_target(device),
         )
         _build.check(lib, DECODE_KERNEL, err)
     launches[DECODE_KERNEL] += 1
-    return out
 
 
 def stepsize_probe_reference(device) -> torch.Tensor:

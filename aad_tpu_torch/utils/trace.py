@@ -25,11 +25,13 @@ with ``aad.``:
   a pile of one launch, its kernel and its one copy down),
   ``aad.encode_batch.assemble`` (the byte strings of the streams that end
   in that chunk), ``aad.push.frame`` (the
-  byte queue and the block rows of a push), ``aad.frame.blocks`` (the block
-  rows and their header parse, ``Decoder._decode_prefix``; a
-  ``decode_batch``'s per-stream rows), ``aad.decode.pcm`` (the lane reorders
-  and mid/side around the decode kernel), ``aad.sharded.scatter`` (every
-  shard's input copies);
+  byte queue and the block rows of a push), ``aad.frame.blocks`` (the
+  block rows' view of the payload, ``Decoder._decode_prefix``; a
+  ``decode_batch``'s per-stream rows), ``aad.decode.pcm`` (the decode of
+  the rows: on a card the decode kernel's launch, which parses the block
+  headers and combines mid/side itself; on the CPU, or under the
+  ``pallas`` engine, the header parse, lane reorders and mid/side as torch
+  ops), ``aad.sharded.scatter`` (every shard's input copies);
 * copies: ``aad.h2d`` and ``aad.d2h``, each counting the bytes it moves as
   ``h2d_bytes`` and ``d2h_bytes`` (on a CPU device, where the copy is none,
   the bytes it would move); a synchronous copy's span holds the host's wait
@@ -42,6 +44,9 @@ with ``aad.``:
   ``pile_pad_bytes`` (the pile's upload less its samples) and
   ``pile_zero_bytes`` (the zeros the host wrote into it: the tails of the
   streams' last blocks);
+* kernel 1's counters, on a card only (``ops.fused_decode.decode_rows``):
+  ``k1_rows_parsed`` (blocks whose headers the kernel parsed itself) and
+  ``k1_rows_ms`` (of them, those whose left/right it combined);
 * kernel launches, on a card only: ``aad.launch.decode_lanes``,
   ``aad.launch.stepsize_probe``, ``aad.launch.encode_stream``,
   ``aad.launch.encode_pass``, ``aad.launch.lms_lanes``.

@@ -236,7 +236,9 @@ LATENCY = {"LDS": 23, "LDG": 33}
 # VIADD among them (its pipe is not documented), counts for issue only.
 ALU_OPCODES = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "IMNMX", "VIMNMX", "VIADDMNMX", "SEL", "PRMT",
                "MOV", "IABS", "SGXT", "BMSK", "PLOP3", "FSEL"}
-DECODE_SYMBOL = "decode_lanes_kernelILi4ELb1ELi2E"  # aad_decode_lanes at 4 bits, packed, stereo: the main path
+DECODE_SYMBOL = "decode_lanes_kernelILi4ELb1ELi2ELb0E"  # aad_decode_lanes at 4 bits, block rows, L/R: the main path
+# kernel 1 on the bench stream's rows with the lane states given (PERF.md kernel table, row 1; H100 80GB HBM3, 700 W)
+K1_STATES_GIVEN_MS = 0.2114
 LMS_SYMBOL = "lms_lanes_kernel"
 SERIAL_SYMBOL = "encode_stream_kernelILi4ELb1E"  # aad_encode_stream's serial schedule, 4 bits, packed
 PAIRED_SYMBOL = "encode_stream_paired_kernelILi4ELb1ELb1E"  # its paired schedule, staged, packed (the sequential shape's)
@@ -1423,19 +1425,18 @@ def transfer_native_phase(cuda, card, bench, main, slice_run, first_decode_s) ->
     # kernels 1 and 5 at the shape decode() gives them: its first chunk
     blocks = pad_to_blocks(torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()), chunk,
                            geo).to(cuda)
-    states = parse_block_headers(blocks, geo)
-    codes = block_codes(blocks, geo)  # phase A's input
+    states = parse_block_headers(blocks, geo)  # phase A's and kernel 5's inputs
+    codes = block_codes(blocks, geo)
     B, C, T = codes.shape
-    lanes = (blocks, states.step_index.t().reshape(-1).contiguous(),
-             states.history.transpose(0, 1).reshape(-1, 4).contiguous(),
-             states.weight.transpose(0, 1).reshape(-1, 4).contiguous(), 4, geo)
-    err1 = max_err(fd.decode_lanes(*lanes), fd.decode_lanes_reference(*lanes))
+    lanes = (states.step_index.t().reshape(-1).contiguous(), states.history.transpose(0, 1).reshape(-1, 4).contiguous(),
+             states.weight.transpose(0, 1).reshape(-1, 4).contiguous())
+    err1 = max_err(fd.decode_rows(blocks, geo), fd.decode_rows_reference(blocks, geo))
     qdiffs = compute_qdiffs_prefix(codes.permute(2, 1, 0).reshape(T, C * B).contiguous(),
-                                   cs.clip(lanes[1], 0, STEP_INDEX_MAX), 4, dim=0)
-    err5 = max_err(lms.lms_lanes(qdiffs, lanes[2], lanes[3]), lms.lms_lanes_reference(qdiffs, lanes[2], lanes[3]))
+                                   cs.clip(lanes[0], 0, STEP_INDEX_MAX), 4, dim=0)
+    err5 = max_err(lms.lms_lanes(qdiffs, lanes[1], lanes[2]), lms.lms_lanes_reference(qdiffs, lanes[1], lanes[2]))
     check(err1 == 0 and err5 == 0, f"kernels at decode()'s chunk: max |err| {err1}, {err5}")
-    k1_ms = cuda_ms(lambda: fd.decode_lanes(*lanes), KERNEL_ITERS)
-    k5_ms = cuda_ms(lambda: lms.lms_lanes(qdiffs, lanes[2], lanes[3]), KERNEL_ITERS)
+    k1_ms = cuda_ms(lambda: fd.decode_rows(blocks, geo), KERNEL_ITERS)
+    k5_ms = cuda_ms(lambda: lms.lms_lanes(qdiffs, lanes[1], lanes[2]), KERNEL_ITERS)
     print(f"[time] at decode()'s chunk, {C * B} lanes x {T} codes (the bench stream's first chunk): "
           f"aad_decode_lanes {k1_ms:.4f} ms, aad_lms_lanes {k5_ms:.4f} ms a launch, both == plain, bit-exact ({card})")
     del blocks, states, codes, lanes, qdiffs
@@ -2233,19 +2234,21 @@ def main() -> int:
                 if not block:
                     geo = at.compute_block_geometry(geo.header_bytes + 3 * geo.unit_bytes, C, bps)
                 T = geo.codes_per_block
-                _, si, hist, wt = lane_inputs(rng, B * C, 1, bps)
+                # random headers: every wire step index (4081-4095 malformed) and weight shift
                 raw = torch.from_numpy(rng.integers(0, 256, B * geo.block_size + skew, dtype=np.uint8))
-                rows = raw.to(cuda)[skew:].view(B, geo.block_size)  # the kernel reads only the data regions
+                rows = raw.to(cuda)[skew:].view(B, geo.block_size)
                 check(rows.data_ptr() % 4 == skew, "rows off their boundary")
-                want = fd.decode_lanes_reference(raw[skew:].view(B, geo.block_size), si, hist, wt, bps, geo)
-                got = fd.decode_lanes(rows, si.to(cuda), hist.to(cuda), wt.to(cuda), bps, geo)
-                torch.cuda.synchronize()
-                err = max_err(got, want)
-                what = f"bps={bps} C={C} blocks of {geo.block_size} bytes, T={T}, B={B}, {skew} bytes off"
-                check(err == 0, f"kernel != plain on block rows at {what}: max |err| {err}")
-                decode_err = max(decode_err, err)
-                print(f"[kernel-vs-plain] aad_decode_lanes on block rows, {what} a 4-byte boundary, data region "
-                      f"{geo.header_bytes} bytes in, {B * C} lanes, rows of {T + 4}: bit-exact")
+                for ms in (False, True) if C == 2 else (False,):
+                    want = fd.decode_rows_reference(raw[skew:].view(B, geo.block_size), geo, ms)
+                    got = fd.decode_rows(rows, geo, ms)
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    what = (f"bps={bps} C={C}{' mid/side' if ms else ''} blocks of {geo.block_size} bytes, T={T}, "
+                            f"B={B}, {skew} bytes off")
+                    check(err == 0, f"kernel != plain on block rows at {what}: max |err| {err}")
+                    decode_err = max(decode_err, err)
+                    print(f"[kernel-vs-plain] aad_decode_lanes on block rows, {what} a 4-byte boundary, headers "
+                          f"parsed in the kernel, {B * C} lanes, rows of {T + 4}: bit-exact")
         for B, C, T in EDGE_SHAPES:
             args = lane_inputs(rng, B * C, T, bps)
             want = fd.decode_lanes_reference(*args, bps)
@@ -2320,23 +2323,26 @@ def main() -> int:
 
     dec = at.Decoder.from_header(h, device="cuda")
     payload = torch.from_numpy(np.frombuffer(data, np.uint8)[at.FILE_HEADER_SIZE:].copy()).to(cuda)
-    lanes = (
-        pad_to_blocks(payload, nblocks, geo),  # (B, block_size) rows, as framing.split_blocks gives them
-        framed.states.step_index.t().reshape(-1).contiguous().to(cuda),
-        framed.states.history.transpose(0, 1).reshape(-1, 4).contiguous().to(cuda),
-        framed.states.weight.transpose(0, 1).reshape(-1, 4).contiguous().to(cuda),
-        4, geo,
-    )
+    rows = pad_to_blocks(payload, nblocks, geo)  # (B, block_size) rows, as framing.split_blocks gives them
     B, C, T = nblocks, geo.num_channels, geo.codes_per_block
     L = B * C
-    got = fd.decode_lanes(*lanes)
-    want = fd.decode_lanes_reference(*lanes)
-    full_err = max_err(got, want)
-    check(full_err == 0, "kernel != plain on the card at the main-path shape")
-    del got, want
-    kernel_ms = cuda_ms(lambda: fd.decode_lanes(*lanes), KERNEL_ITERS)
-    plain_ms = cuda_ms(lambda: fd.decode_lanes_reference(*lanes), PLAIN_ITERS, warmup=1)
-    kernel_ms_2 = cuda_ms(lambda: fd.decode_lanes(*lanes), KERNEL_ITERS)
+    # the bench stream, its mid/side variant (the same rows) and a live push: 8 blocks of 3-bit mid/side
+    # 128-byte blocks (126 on the wire), random bytes; each one launch, against the plain version
+    push_geo = at.compute_block_geometry(128, 2, 3)
+    push_rows = torch.from_numpy(rng.integers(0, 256, (8, push_geo.block_size), dtype=np.uint8)).to(cuda)
+    full_err = 0
+    for what, r, g, ms in (("bench stream", rows, geo, False), ("mid/side variant", rows, geo, True),
+                           ("push of 8 3-bit mid/side blocks", push_rows, push_geo, True)):
+        err = max_err(fd.decode_rows(r, g, ms), fd.decode_rows_reference(r, g, ms))
+        check(err == 0, f"kernel != plain on the card at the {what}: max |err| {err}")
+        full_err = max(full_err, err)
+        print(f"[kernel-vs-plain] aad_decode_lanes on the {what}, {r.shape[0] * g.num_channels} lanes, headers "
+              f"parsed{' and left/right combined' if ms else ''} in the kernel: bit-exact")
+    kernel_ms = cuda_ms(lambda: fd.decode_rows(rows, geo), KERNEL_ITERS)
+    plain_ms = cuda_ms(lambda: fd.decode_rows_reference(rows, geo), PLAIN_ITERS, warmup=1)
+    kernel_ms_2 = cuda_ms(lambda: fd.decode_rows(rows, geo), KERNEL_ITERS)
+    ms_kernel_ms = cuda_ms(lambda: fd.decode_rows(rows, geo, True), KERNEL_ITERS)
+    push_kernel_ms = cuda_ms(lambda: fd.decode_rows(push_rows, push_geo, True), KERNEL_ITERS)
     probe_ms = cuda_ms(lambda: fd.stepsize_probe(cuda), KERNEL_ITERS)
     probe_plain_ms = cuda_ms(lambda: fd.stepsize_probe_reference(cuda), KERNEL_ITERS)
     resident_ms = cuda_ms(lambda: dec.decode_payload_ondevice(payload), DECODE_ITERS)
@@ -2348,8 +2354,8 @@ def main() -> int:
         at.decode(data, device="cuda")
     e2e_s = (time.perf_counter() - t0) / DECODE_ITERS
     decode_sass = sass_per_sample(DECODE_SYMBOL)
-    # the bytes: each block row read once, the lane states, the int16 rows written
-    decode_bound, decode_pipe = loop_bound(B * geo.block_size + L * 36 + L * (T + 4) * 2, L * T, decode_sass)
+    # the bytes: each block row read once (headers included), the int16 rows written
+    decode_bound, decode_pipe = loop_bound(B * geo.block_size + L * (T + 4) * 2, L * T, decode_sass)
     probe_bound = bound(2 * 256 * 4, 256 * PROBE_OPS_PER_SLOT)
     print(f"[time] card: {card}")
     print(f"[grid] aad_decode_lanes: {grid_line(DECODE_SYMBOL, L, cuda)}")
@@ -2358,6 +2364,11 @@ def main() -> int:
           f"kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms (two windows), bound {decode_bound[0]:.4f} ms "
           f"({decode_bound[1]}), {decode_bound[0] / min(kernel_ms, kernel_ms_2):.1%} of the bound; "
           f"plain torch on the card {plain_ms:.4f} ms ({card})")
+    k1_best = min(kernel_ms, kernel_ms_2)
+    print(f"[time] aad_decode_lanes on the bench stream, headers parsed in the kernel: {k1_best:.4f} ms beside "
+          f"{K1_STATES_GIVEN_MS:.4f} ms with the states given, {k1_best / K1_STATES_GIVEN_MS - 1:+.2%}; "
+          f"the mid/side variant "
+          f"{ms_kernel_ms:.4f} ms; a push of 8 3-bit mid/side blocks {push_kernel_ms:.4f} ms a launch ({card})")
     print(f"[time] aad_stepsize_probe 256 slots: kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, "
           f"bound {probe_bound[0]:.6f} ms ({probe_bound[1]}) ({card})")
     floor_bound = floor_ms + probe_bound[0]
@@ -2384,7 +2395,7 @@ def main() -> int:
     check(prof["code_ops"] == 0, f"the fused decode still unpacks the codes ({prof['code_ops']} operations a call)")
     print(f"[profile]   resident fused decode: {prof['device_ms']:.4f} ms of device time a call, beside "
           f"{BYTE_CODES_DECODE_MS:.4f} ms when the codes were unpacked by torch ops before kernel 1 ({card})")
-    del framed, lanes, payload, dec
+    del framed, rows, push_rows, payload, dec
 
     stamp("6 decode times")
     # 7-9. encode

@@ -14,12 +14,15 @@ import torch
 
 import jax.numpy as jnp
 
+import aad_tpu
+from aad_tpu.format import framing as jf
 from aad_tpu.format.geometry import compute_block_geometry as jgeometry
 from aad_tpu.ops import bitpack as jb
 from aad_tpu.ops import decode as jd
 from aad_tpu.ops import transitions as jt
 
 import aad_tpu_torch
+from aad_tpu_torch.format.framing import block_codes, pad_to_blocks, parse_block_headers
 from aad_tpu_torch.ops import _build, fused_decode
 from aad_tpu_torch.ops import decode as td
 from aad_tpu_torch.ops import transitions as tt
@@ -135,48 +138,95 @@ def test_plain_stepsize_probe_has_no_corrections():
     assert fused_decode.stepsize_corrections("cpu") == ()
 
 
-def _block_rows(codes, si, wt, hi, bps, seed):
-    """(B, C, ...) block-batch arrays -> the kernel's inputs: (B, block_size)
-    block rows, the codes packed in their data regions by aad_tpu's
-    pack_codes behind random header bytes (the kernel reads the states from
-    its other inputs), and the channel-major lane states; with the port's
-    geometry of those rows."""
-    B, C, T = codes.shape
-    geo = jgeometry(1024, C, bps)
-    assert T % geo.samples_per_unit == 0
-    geo = jgeometry(geo.header_bytes + T // geo.samples_per_unit * geo.unit_bytes, C, bps)
-    head = np.random.default_rng(seed).integers(0, 256, (B, geo.header_bytes), dtype=np.uint8)
-    rows = np.concatenate([head, np.asarray(jb.pack_codes(codes, geo))], axis=1)
-    lanes = lambda a: torch.from_numpy(np.ascontiguousarray(a.swapaxes(0, 1).reshape(C * B, *a.shape[2:])))
-    tgeo = aad_tpu_torch.compute_block_geometry(geo.block_size, C, bps)
-    return (torch.from_numpy(rows), lanes(si), lanes(hi), lanes(wt)), tgeo
+LAYOUTS = {"mono": (1, False), "lr": (2, False), "ms": (2, True)}  # channels, mid/side
+
+
+def _wire_rows(seed, B, geo):
+    """(B, block_size) uint8 block rows of random bytes: random headers, so
+    every wire step index 0-4095 and every weight shift is possible, the
+    first lanes' tags set to step indices 4080-4095 (4081 and up: the parse
+    clamp), and random codes."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (B, geo.block_size), dtype=np.uint8)
+    for i, idx in enumerate(range(4080, 4096)):
+        b, c = divmod(i, geo.num_channels)
+        if b < B:
+            tag = (idx << 4) | int(rng.integers(0, 16))
+            rows[b, 18 * c : 18 * c + 2] = [tag >> 8, tag & 0xFF]
+    return rows
+
+
+def _lanes_of(a: torch.Tensor) -> torch.Tensor:
+    """(B, C, ...) -> (C * B, ...): lane c * B + b is channel c of block b."""
+    return a.transpose(0, 1).reshape(a.shape[0] * a.shape[1], *a.shape[2:]).contiguous()
 
 
 @pytest.mark.parametrize("engine", ["scan", "fused"])
-@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("bps", [2, 3, 4])
-def test_decode_lanes_block_order_matches_jax(bps, C, engine):
-    """decode_lanes and decode_lanes_reference take the (B, block_size) block
-    rows of framing.split_blocks, read each lane's codes packed from its
-    block's data region, and return channel-major rows (lane c * B + b):
-    equal to aad_tpu's scan engine and to its fused Pallas kernel in
-    interpret mode on the unpacked codes."""
+def test_decode_rows_matches_jax(bps, layout, engine):
+    """decode_rows takes the (B, block_size) block rows of
+    framing.pad_to_blocks, parses each block header, reads each lane's codes
+    packed from its block's data region and, for mid/side, combines left and
+    right; it returns channel-major rows (lane c * B + b): equal to aad_tpu's
+    header parse and unpack, then its scan engine or its fused Pallas kernel
+    in interpret mode, then its ms_to_lr."""
+    C, ms = LAYOUTS[layout]
     B, T = 1024 // C, 24  # one 1024-lane tile; whole units at every bps
-    codes, si, wt, hi = _lanes(80 + 2 * bps + C, B * C, T, bps)
-    codes, si, wt, hi = codes.reshape(B, C, T), si.reshape(B, C), wt.reshape(B, C, 4), hi.reshape(B, C, 4)
-    want = np.asarray(jd.decode_blocks(
-        jnp.asarray(codes), jnp.asarray(si), jnp.asarray(wt), jnp.asarray(hi),
-        bits_per_sample=bps, engine=engine,
-    ))
-    want = want.swapaxes(0, 1).reshape(C * B, T + 4)
-    args, geo = _block_rows(codes, si, wt, hi, bps, bps)
-    assert geo.bits_per_sample == bps and geo.codes_per_block == T
+    full = jgeometry(1024, C, bps)
+    geo = jgeometry(full.header_bytes + T // full.samples_per_unit * full.unit_bytes, C, bps)
+    assert geo.codes_per_block == T
+    rows = _wire_rows(80 + 2 * bps + C, B, geo)
+    states = jf.parse_block_headers(rows, geo)
+    codes = jb.unpack_codes(rows[:, geo.header_bytes : geo.header_bytes + geo.data_bytes], geo)
+    samples = jd.decode_blocks(codes, states.step_index, states.weight, states.history,
+                               bits_per_sample=bps, engine=engine)
+    want = np.asarray(jd.ms_to_lr(samples) if ms else samples).swapaxes(0, 1).reshape(C * B, T + 4)
+    tgeo = aad_tpu_torch.compute_block_geometry(geo.block_size, C, bps)
     before = dict(fused_decode.launches)
-    got = fused_decode.decode_lanes(*args, bps, geo)
+    got = fused_decode.decode_rows(torch.from_numpy(rows), tgeo, ms)
     assert fused_decode.launches == before
     assert got.dtype == torch.int16 and got.shape == (C * B, T + 4)
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(fused_decode.decode_lanes_reference(*args, bps, geo).numpy(), want)
+    np.testing.assert_array_equal(fused_decode.decode_rows_reference(torch.from_numpy(rows), tgeo, ms).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("block", [128, 1024])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("bps", [2, 3, 4])
+def test_decode_rows_plain_version_is_the_cpu_path(bps, layout, block):
+    """decode_rows on CPU tensors (its plain version) == the header parse,
+    decode_lanes_reference on the codes one a byte and the torch mid/side
+    combine, and == aad_tpu's scan decode of the same bytes: four blocks,
+    the last short on the wire (its missing bytes read as zero codes),
+    step indices 4081-4095 among the headers."""
+    C, ms = LAYOUTS[layout]
+    geo = aad_tpu_torch.compute_block_geometry(block, C, bps)
+    nspb = geo.num_samples_per_block
+    B, n = 4, 3 * nspb + nspb // 3
+    payload = _wire_rows(10 * bps + block + C + ms, B, geo).reshape(-1)[: aad_tpu_torch.encoded_stream_size(geo, n)]
+    blocks = pad_to_blocks(torch.from_numpy(payload), B, geo)
+    got = fused_decode.decode_rows(blocks, geo, ms)
+
+    states = parse_block_headers(blocks, geo)
+    assert int(states.step_index.max()) == 4080  # the clamp reached
+    want = fused_decode.decode_lanes_reference(_lanes_of(block_codes(blocks, geo)), _lanes_of(states.step_index),
+                                               _lanes_of(states.history), _lanes_of(states.weight), bps)
+    if ms:
+        mid, side = want[:B].to(torch.int32), want[B:].to(torch.int32)
+        want = torch.cat([torch.clamp(mid + side, -32768, 32767), torch.clamp(mid - side, -32768, 32767)])
+    assert got.dtype == torch.int16 and got.shape == (C * B, nspb)
+    assert torch.equal(got, want.to(torch.int16))
+
+    header = aad_tpu.HeaderInfo(
+        num_channels=C, num_samples=n, sampling_rate=8000, bits_per_sample=bps, block_size=geo.block_size,
+        num_samples_per_block=nspb, ch_process_method=int(ms),
+    )
+    data = aad_tpu.encode_header(header) + payload.tobytes()
+    _, pcm = aad_tpu.decode(data, engine="scan")
+    np.testing.assert_array_equal(got.view(C, -1)[:, :n].numpy(), pcm)
+    np.testing.assert_array_equal(aad_tpu_torch.decode(data, device="cpu")[1], pcm)
 
 
 @pytest.mark.parametrize("bps", [2, 3, 4])
@@ -192,26 +242,34 @@ def test_cpu_wrapper_runs_plain_version_without_launching(bps):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    codes, si, wt, hi = _lanes(70, 8, 8, 4)
-    (c, s, h, w), geo = _block_rows(codes.reshape(4, 2, 8), si.reshape(4, 2), wt.reshape(4, 2, 4),
-                                    hi.reshape(4, 2, 4), 4, 0)
-    assert fused_decode.decode_lanes(c, s, h, w, 4, geo).shape == (8, 12)
+    c, s, w, h = _t(*_lanes(70, 8, 8, 4))
+    assert fused_decode.decode_lanes(c, s, h, w, 4).shape == (8, 12)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c.to(torch.int32), s, h, w, 4, geo)
+        fused_decode.decode_lanes(c.to(torch.int32), s, h, w, 4)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c, s[:-1], h, w, 4, geo)
+        fused_decode.decode_lanes(c, s[:-1], h, w, 4)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c, s, h.to(torch.int64), w, 4, geo)
+        fused_decode.decode_lanes(c, s, h.to(torch.int64), w, 4)
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c, s, h, w, 5, geo)
-    with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c, s, h, w, 2, geo)  # the geometry's bit depth is 4
-    with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c[:, 1:], s, h, w, 4, geo)  # rows narrower than a block
+        fused_decode.decode_lanes(c, s, h, w, 5)
     with pytest.raises(ValueError):
         fused_decode.decode_lanes(c.reshape(4, 2, -1), s, h, w, 4)  # not rows
     with pytest.raises(ValueError):
-        fused_decode.decode_lanes(c.to("meta"), s.to("meta"), h.to("meta"), w.to("meta"), 4, geo)
+        fused_decode.decode_lanes(c.to("meta"), s.to("meta"), h.to("meta"), w.to("meta"), 4)
+
+    geo = aad_tpu_torch.compute_block_geometry(128, 2, 3)
+    rows = torch.from_numpy(_wire_rows(71, 4, geo))
+    assert fused_decode.decode_rows(rows, geo, True).shape == (8, geo.num_samples_per_block)
+    with pytest.raises(ValueError):
+        fused_decode.decode_rows(rows.to(torch.int32), geo)
+    with pytest.raises(ValueError):
+        fused_decode.decode_rows(rows[:, 1:], geo)  # rows narrower than a block
+    with pytest.raises(ValueError):
+        fused_decode.decode_rows(rows.reshape(-1), geo)  # not rows
+    with pytest.raises(ValueError):
+        fused_decode.decode_rows(rows[:, :18], aad_tpu_torch.compute_block_geometry(128, 1, 3), True)  # mono
+    with pytest.raises(ValueError):
+        fused_decode.decode_rows(rows.to("meta"), geo)
 
 
 def test_decode_sample_matches_jax():

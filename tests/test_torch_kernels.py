@@ -68,10 +68,19 @@ def _rows_geometry(C, T, bps):
     return compute_block_geometry(geo.header_bytes + units * geo.unit_bytes, C, bps)
 
 
+LAYOUTS = {"mono": (1, False), "lr": (2, False), "ms": (2, True)}  # channels, mid/side
+
+
 def _random_rows(seed, B, geo, skew=0, device="cpu"):
-    """(B, block_size) random bytes on ``device`` (the kernel reads only the
-    data regions), as a view ``skew`` bytes past a 4-byte boundary."""
+    """(B, block_size) random bytes on ``device``, as a view ``skew`` bytes
+    past a 4-byte boundary: random block headers (wire step indices 0-4095,
+    the malformed 4081-4095 among them, any weight shift) and codes."""
     raw = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, B * geo.block_size + skew, dtype=np.uint8))
+    rows = raw[skew:].view(B, geo.block_size)
+    for i, idx in enumerate(range(4080, 4096)):  # the first lanes' tags: the table's top and the parse clamp
+        b, c = divmod(i, geo.num_channels)
+        if b < B:
+            rows[b, 18 * c : 18 * c + 2] = torch.tensor([idx >> 4, ((idx & 0xF) << 4) | (i & 0xF)])
     return raw.to(device)[skew:].view(B, geo.block_size)
 
 
@@ -82,24 +91,38 @@ def test_stepsize_probe_equals_table(cuda):
     assert fused_decode.stepsize_corrections(cuda) == ()
 
 
+def _rows_equal_plain(rows, geo, ms, n_codes=None):
+    """One launch of kernel 1 on ``rows`` (on the card), equal to the plain
+    version on the same bytes."""
+    want = fused_decode.decode_rows_reference(rows.cpu(), geo, ms)
+    before = fused_decode.launches[fused_decode.DECODE_KERNEL]
+    got = fused_decode.decode_rows(rows, geo, ms)
+    torch.cuda.synchronize()
+    assert fused_decode.launches[fused_decode.DECODE_KERNEL] == before + 1
+    assert got.dtype == torch.int16 and got.shape == (rows.shape[0] * geo.num_channels, geo.codes_per_block + 4)
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("bps", [2, 3, 4])
 @pytest.mark.parametrize("B,C,T", [(500, 2, 300), (257, 1, 988), *EDGE_SHAPES])
 def test_decode_lanes_kernel_matches_plain(cuda, bps, B, C, T):
     """Block rows, the codes packed in their data regions (B blocks of C
-    channels, the fewest whole units that hold T codes), and (B * C, T)
-    codes one a byte: one launch each, equal to the plain version."""
+    channels, the fewest whole units that hold T codes), the states parsed
+    from their headers, as L/R and, in stereo, as mid/side; and (B * C, T)
+    codes one a byte with the states given: one launch each, equal to the
+    plain version."""
     codes, si, hi, wt = _lanes(bps * 7 + B * C + T, B, C, T, bps)
     geo = _rows_geometry(C, T, bps)
-    rows = _random_rows(bps + B + T, B, geo)
-    for lanes, g in ((rows, geo), (codes, None)):
-        n = geo.codes_per_block if g is not None else T
-        want = fused_decode.decode_lanes_reference(lanes, si, hi, wt, bps, g)
-        before = fused_decode.launches[fused_decode.DECODE_KERNEL]
-        got = fused_decode.decode_lanes(lanes.to(cuda), si.to(cuda), hi.to(cuda), wt.to(cuda), bps, g)
-        torch.cuda.synchronize()
-        assert fused_decode.launches[fused_decode.DECODE_KERNEL] == before + 1
-        assert got.dtype == torch.int16 and got.shape == (B * C, n + 4)
-        assert torch.equal(got.cpu(), want)
+    rows = _random_rows(bps + B + T, B, geo, device=cuda)
+    for ms in (False, True) if C == 2 else (False,):
+        _rows_equal_plain(rows, geo, ms)
+    want = fused_decode.decode_lanes_reference(codes, si, hi, wt, bps)
+    before = fused_decode.launches[fused_decode.DECODE_KERNEL]
+    got = fused_decode.decode_lanes(codes.to(cuda), si.to(cuda), hi.to(cuda), wt.to(cuda), bps)
+    torch.cuda.synchronize()
+    assert fused_decode.launches[fused_decode.DECODE_KERNEL] == before + 1
+    assert got.dtype == torch.int16 and got.shape == (B * C, T + 4)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("skew", [1, 2, 3])
@@ -110,18 +133,62 @@ def test_decode_lanes_kernel_takes_unaligned_codes(cuda, skew, C):
     3-bit mono block is 1,023 bytes, so block after block lies off one."""
     for bps in (4, 3):
         geo = compute_block_geometry(1024, C, bps)
-        B = 67
-        _, si, hi, wt = _lanes(5 + skew, B, C, 1, bps)
-        rows = _random_rows(skew, B, geo, skew, cuda)
+        rows = _random_rows(skew, 67, geo, skew, cuda)
         assert rows.data_ptr() % 4 == skew
-        want = fused_decode.decode_lanes_reference(rows.cpu(), si, hi, wt, bps, geo)
-        got = fused_decode.decode_lanes(rows, si.to(cuda), hi.to(cuda), wt.to(cuda), bps, geo)
-        assert torch.equal(got.cpu(), want)
+        for ms in (False, True) if C == 2 else (False,):
+            _rows_equal_plain(rows, geo, ms)
 
 
-def _stream(nch, ms, bps):
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("bps", [2, 3, 4])
+@pytest.mark.parametrize("B", [1, 7, 8, 31, 32, 33, 65])
+def test_decode_rows_kernel_matches_plain(cuda, B, bps, layout):
+    """Kernel 1 on block rows at the live cell's 128-byte blocks (126 at 3
+    bits): B around a CTA's 32 stereo or 64 mono blocks, rows 1-3 bytes off
+    a 4-byte boundary, headers with malformed step indices: the header
+    parse, the recurrence and the mid/side flush equal the plain version."""
+    C, ms = LAYOUTS[layout]
+    geo = compute_block_geometry(128, C, bps)
+    skew = 1 + B % 3
+    rows = _random_rows(B * 10 + bps, B, geo, skew, cuda)
+    assert rows.data_ptr() % 4 == skew
+    _rows_equal_plain(rows, geo, ms)
+
+
+def test_streaming_push_is_one_launch_on_the_card(cuda):
+    """A live cell's stream (3 bits, 128-byte blocks, mid/side) pushed in
+    975-byte pieces: every push that decodes is one launch of kernel 1,
+    whose header parse counts the push's blocks, and the PCM equals
+    ``device="cpu"``'s."""
+    from torch.profiler import profile
+
+    from aad_tpu_torch.utils import trace
+
+    geo = compute_block_geometry(128, 2, 3)
+    data = _stream(2, True, 3, block=128)
+    cpu, card = aad_tpu_torch.StreamingDecoder(device="cpu"), aad_tpu_torch.StreamingDecoder(device=cuda)
+    got, want, blocks_before = [], [], 0
+    for k in range(0, len(data), 975):
+        piece = data[k : k + 975]
+        want.append(cpu.push(piece))
+        before = fused_decode.launches[fused_decode.DECODE_KERNEL]
+        counted = dict(trace.counts)
+        with profile():
+            out = card.push(piece)
+        launched = fused_decode.launches[fused_decode.DECODE_KERNEL] - before
+        parsed = trace.counts.get("k1_rows_parsed", 0) - counted.get("k1_rows_parsed", 0)
+        combined = trace.counts.get("k1_rows_ms", 0) - counted.get("k1_rows_ms", 0)
+        blocks = -(-(card._samples_out) // geo.num_samples_per_block) - blocks_before
+        blocks_before += blocks
+        assert (launched, parsed, combined) == ((1, blocks, blocks) if out.shape[1] else (0, 0, 0))
+        got.append(out)
+    np.testing.assert_array_equal(np.concatenate(got, axis=1), np.concatenate(want, axis=1))
+    assert sum(g.shape[1] for g in got) == aad_tpu_torch.decode_header(data).num_samples
+
+
+def _stream(nch, ms, bps, block=1024):
     """A 40-block stream with a ragged tail, as the benchmark draws its stream."""
-    geo = compute_block_geometry(1024, nch, bps)
+    geo = compute_block_geometry(block, nch, bps)
     n = 40 * geo.num_samples_per_block - 123
     nb = num_blocks_for(n, geo.num_samples_per_block)
     rng = np.random.default_rng(nch * 10 + bps)

@@ -14,6 +14,7 @@ card). The launch spans exist on a card only: the GPU tests hold them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import tempfile
@@ -67,16 +68,23 @@ def encode_batch_case(device):
     return lambda: aad_tpu_torch.encode_batch(pile, CFG, device=device), spans, counts
 
 
-def push_case(device):
+def push_case(device, ms: bool = False):
     """One push of a whole three-block stream, its file header included,
-    into a new decoder."""
+    into a new decoder; ``ms``: a mid/side stream. ``aad.frame.blocks`` holds
+    the rows' view and ``aad.decode.pcm`` the decode (on the CPU the header
+    parse, the recurrence and the combine; on a card kernel 1's launch, which
+    adds ``k1_rows_parsed`` and ``k1_rows_ms``)."""
     n = 2 * NSPB + 7
-    data = aad_tpu_torch.encode(_pcm(3, n), CFG, device="cpu")
+    data = aad_tpu_torch.encode(_pcm(3, n), dataclasses.replace(CFG, ch_process_method=int(ms)), device="cpu")
     push = "aad.stream_decode.push"
     spans = [(push, None), ("aad.push.frame", push), ("aad.h2d", push), ("aad.frame.blocks", push),
              ("aad.decode.pcm", push), ("aad.d2h", push)]
     counts = {"h2d_bytes": 3 * GEO.block_size, "d2h_bytes": 2 * n * 2}
     return lambda: aad_tpu_torch.StreamingDecoder(device=device).push(data), spans, counts
+
+
+def push_ms_case(device):
+    return push_case(device, ms=True)
 
 
 def sharded_case(device):
@@ -90,7 +98,7 @@ def sharded_case(device):
     return call, spans, {}
 
 
-CASES = {"encode_batch": encode_batch_case, "push": push_case, "sharded": sharded_case}
+CASES = {"encode_batch": encode_batch_case, "push": push_case, "push_ms": push_ms_case, "sharded": sharded_case}
 
 
 def program_spans(prof) -> list:

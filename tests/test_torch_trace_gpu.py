@@ -64,10 +64,14 @@ def test_encode_batch_counts_the_pile_and_marks_its_launch(cuda):
     assert_documented(prof, _after(spans, "aad.h2d", [("aad.launch.encode_stream", "aad.encode_batch")]))
 
 
-def test_push_marks_its_launch_inside_the_decode(cuda):
-    call, spans, counts = push_case(cuda)
+@pytest.mark.parametrize("ms", [False, True])
+def test_push_marks_its_launch_inside_the_decode(cuda, ms):
+    """One launch of kernel 1 a push, its span the only one inside
+    ``aad.decode.pcm``; the kernel parsed the push's three block headers
+    itself and, for a mid/side stream, combined their left/right."""
+    call, spans, counts = push_case(cuda, ms)
     prof, gained, launched = _on_card(call, cuda)
-    assert gained == counts
+    assert gained == {**counts, "k1_rows_parsed": 3, **({"k1_rows_ms": 3} if ms else {})}
     assert launched == {fused_decode.DECODE_KERNEL: 1}
     assert_documented(prof, _after(spans, "aad.decode.pcm", [("aad.launch.decode_lanes", "aad.decode.pcm")]))
 
