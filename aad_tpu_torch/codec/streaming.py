@@ -79,25 +79,30 @@ class StreamingEncoder:
         pcm = np.asarray(pcm)
         if pcm.ndim != 2 or pcm.shape[0] != self.config.num_channels:
             raise InvalidArgumentError(f"chunk must be ({self.config.num_channels}, n)")
-        self._buffer = np.concatenate([self._buffer, as_int16(pcm)], axis=1)
-        nspb = self.geometry.num_samples_per_block
-        whole = self._buffer.shape[1] // nspb
-        if whole == 0:
-            return b""
-        head = self._buffer[:, : whole * nspb]
-        self._buffer = self._buffer[:, whole * nspb :]
-        return self._encode_blocks(head)
+        with span("aad.stream_encode.push"):
+            with span("aad.push.buffer"):
+                self._buffer = np.concatenate([self._buffer, as_int16(pcm)], axis=1)
+                nspb = self.geometry.num_samples_per_block
+                whole = self._buffer.shape[1] // nspb
+                head = self._buffer[:, : whole * nspb]
+                self._buffer = self._buffer[:, whole * nspb :]
+            if whole == 0:
+                count("stream_encode_idle_pushes", 1)
+                return b""
+            return self._encode_blocks(head)
 
     def finish(self) -> bytes:
         """Flush the buffered tail; further pushes are rejected."""
         if self._finished:
             return b""
         self._finished = True
-        if self._buffer.shape[1] == 0:
-            return b""
-        tail = self._buffer
-        self._buffer = self._buffer[:, :0]
-        return self._encode_blocks(tail)
+        with span("aad.stream_encode.finish"):
+            with span("aad.push.buffer"):
+                tail = self._buffer
+                self._buffer = self._buffer[:, :0]
+            if tail.shape[1] == 0:
+                return b""
+            return self._encode_blocks(tail)
 
     def header(self) -> bytes:
         """The 31-byte stream header: of the declared ``total_samples`` when
@@ -115,22 +120,33 @@ class StreamingEncoder:
         the last block may be short."""
         cfg, geo = self.config, self.geometry
         n = pcm.shape[1]
+        nblocks = num_blocks_for(n, geo.num_samples_per_block)
+        count("stream_encode_blocks", nblocks)
         if self._native is not None:
             data = self._native.encode_chunk(pcm, cfg, *self._native_carry, self._blocks_done)
-            self._blocks_done += num_blocks_for(n, geo.num_samples_per_block)
+            self._blocks_done += nblocks
             self._samples_done += n
             return data
-        pcm_t = torch.from_numpy(np.ascontiguousarray(pcm)).to(self.device)
-        blocks, valid = _pad_to_blocks(pcm_t, geo, 0, num_blocks_for(n, geo.num_samples_per_block))
-        if cfg.ch_process_method == CH_PROCESS_MS:
-            blocks = lr_to_ms(blocks).to(torch.int16)
-        headers, data, self._carry = encode_stream(
-            blocks, valid, cfg.bits_per_sample, cfg.num_encode_trials,
-            carry=self._carry, blocks_before=self._blocks_done, need_carry=True, pack=geo,
-        )
-        self._blocks_done += blocks.shape[0]
+        with span("aad.h2d"):
+            count("h2d_bytes", pcm.nbytes)
+            pcm_t = torch.from_numpy(np.ascontiguousarray(pcm)).to(self.device)
+        with span("aad.stream_encode.blocks"):
+            blocks, valid = _pad_to_blocks(pcm_t, geo, 0, nblocks)
+            if cfg.ch_process_method == CH_PROCESS_MS:
+                blocks = lr_to_ms(blocks).to(torch.int16)
+            # on a card, kernel 3 on the blocks, then kernel 4 rebuilds the carry
+            headers, data, self._carry = encode_stream(
+                blocks, valid, cfg.bits_per_sample, cfg.num_encode_trials,
+                carry=self._carry, blocks_before=self._blocks_done, need_carry=True, pack=geo,
+            )
+            count("stream_encode_carried", 1)
+            payload = _block_bytes(headers, data, geo).reshape(-1)[: payload_size(geo, n)]
+        self._blocks_done += nblocks
         self._samples_done += n
-        return _block_bytes(headers, data, geo).reshape(-1)[: payload_size(geo, n)].cpu().numpy().tobytes()
+        with span("aad.d2h"):
+            count("d2h_bytes", payload.nbytes)
+            payload = payload.cpu()
+        return payload.numpy().tobytes()
 
 
 class _ByteFIFO:

@@ -16,7 +16,9 @@ span that the host was in. Spans nest as the calls nest; every name starts
 with ``aad.``:
 
 * API entries: ``aad.encode_batch``, ``aad.decode_batch``,
-  ``aad.stream_decode.push`` (``StreamingDecoder.push``), ``aad.decode``,
+  ``aad.stream_decode.push`` (``StreamingDecoder.push``),
+  ``aad.stream_encode.push`` and ``aad.stream_encode.finish``
+  (``StreamingEncoder.push`` and ``.finish``), ``aad.decode``,
   ``aad.encode``, ``aad.encode_streams_sharded``,
   ``aad.decode_blocks_sharded``, ``aad.encode_blocks_parallel_sharded``;
 * host framing and staging: ``aad.encode_batch.check`` (shapes, int16
@@ -25,7 +27,12 @@ with ``aad.``:
   a pile of one launch, its kernel and its one copy down),
   ``aad.encode_batch.assemble`` (the byte strings of the streams that end
   in that chunk), ``aad.push.frame`` (the
-  byte queue and the block rows of a push), ``aad.frame.blocks`` (the
+  byte queue and the block rows of a push), ``aad.push.buffer`` (a
+  ``StreamingEncoder``'s host buffer: the push's samples joined to it,
+  its whole blocks cut off), ``aad.stream_encode.blocks`` (the encode of
+  those blocks: padding, mid/side, the encode wrapper with, on a card,
+  kernel 3's launch and kernel 4's for the carry, the block bytes),
+  ``aad.frame.blocks`` (the
   block rows' view of the payload, ``Decoder._decode_prefix``; a
   ``decode_batch``'s per-stream rows), ``aad.decode.pcm`` (the decode of
   the rows: on a card the decode kernel's launch, which parses the block
@@ -44,6 +51,11 @@ with ``aad.``:
   ``pile_pad_bytes`` (the pile's upload less its samples) and
   ``pile_zero_bytes`` (the zeros the host wrote into it: the tails of the
   streams' last blocks);
+* ``StreamingEncoder``'s counters: ``stream_encode_blocks`` (blocks
+  encoded by pushes and finishes), ``stream_encode_carried`` (of those
+  calls, the ones that rebuilt the carry: on a card, kernel 4's launch)
+  and ``stream_encode_idle_pushes`` (pushes that encoded no block, and so
+  did no device work);
 * kernel 1's counters, on a card only (``ops.fused_decode.decode_rows``):
   ``k1_rows_parsed`` (blocks whose headers the kernel parsed itself) and
   ``k1_rows_ms`` (of them, those whose left/right it combined);

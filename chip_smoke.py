@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sharding   # phases 1, 2 and 16 only, for a host with several cards
     python3 chip_smoke.py --probes     # phases 1, 2 and 17 only: the decode probes
+    python3 chip_smoke.py --live-encode  # phases 1, 2 and 18 only: a live stereo sender
 
 Run from the repository root on a machine with a CUDA card (written for an
 H100), nvcc and PyTorch. It imports nothing of JAX or ``aad_tpu``. Phases, in
@@ -154,7 +155,14 @@ failure exits non-zero:
    transpose's 4-byte path); then each module's ``main()``, which prints
    its times beside its bytes bound and the card; each record's bound also
    from its compiled loop by pipe (``cuobjdump -sass`` of the probes'
-   library).
+   library);
+18. a live stereo sender: ``StreamingEncoder`` at the benchmark's
+   ``aad-b4-s128-ms-stereo`` geometry (2 channels, 4 bits, 128-byte blocks
+   of 96 samples, mid/side, 2 trials) fed 20-ms pushes (960 samples a
+   channel, 10 blocks), three feeds in turn, each finished after its last
+   push, bit for bit against ``device="cpu"``; then one 10-s feed on the
+   card, its pushes timed by the host's clock (median and p95 a push) with
+   the launches of kernels 3 and 4 a push.
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -194,6 +202,10 @@ PREFIX_BLOCKS = 8
 SEQ_CHECK_BLOCKS = 8  # blocks of kernel 3's sequential-shape launch held against the plain version
 STREAM_PUSH = 1_000_003  # bytes a StreamingDecoder push
 STREAM_CHUNKS = (123_457, 50_000, 991, 200_003)  # samples/ch a StreamingEncoder push, in turn
+LIVE_PUSH = 960  # samples/ch a live sender's push: 20 ms at 48 kHz
+# samples/ch of the feeds checked against the CPU: ending mid-block (96 samples a block), in an idle push, on a push
+LIVE_FEEDS = (2 * LIVE_PUSH + 2 * 96 + 58, LIVE_PUSH + 50, 3 * LIVE_PUSH)
+LIVE_SECONDS = 10  # the timed feed
 FLOOR_ITERS = 1000  # launches of a one-element op, the launch floor
 PILE_STREAMS = 2048  # encode_batch's full-width pile: 4,096 lanes, kernel 3's staging gate
 PILE_SECONDS = (1, 4)  # its streams' lengths, drawn from the seed
@@ -2148,6 +2160,56 @@ def probes_phase(cuda, card, build_future, main_launches) -> list[dict]:
     return records
 
 
+def live_encode_phase(cuda, card) -> None:
+    """Phase 18: a live stereo sender. ``StreamingEncoder`` at the live
+    cell's configuration, 960-sample pushes of three feeds in turn, each
+    finished after its last push, against ``device="cpu"`` bit for bit; then
+    one feed of LIVE_SECONDS on the card, each push timed by the host's
+    clock, with the launches of kernels 3 and 4 a push."""
+    import aad_tpu_torch as at
+    from aad_tpu_torch.ops import encode_pass as ep, fused_encode as fe
+
+    cfg = at.EncodeConfig(2, RATE, 4, 128, 1, 2)
+    feeds = [bench_pcm(n, seed=SEED + 7 + k) for k, n in enumerate(LIVE_FEEDS)]
+
+    def in_turns(device):
+        encs = [at.StreamingEncoder(cfg, device=device) for _ in feeds]
+        outs = [[] for _ in encs]
+        for off in range(0, max(LIVE_FEEDS), LIVE_PUSH):
+            for k, f in enumerate(feeds):
+                if off < f.shape[1]:
+                    outs[k].append(encs[k].push(f[:, off: off + LIVE_PUSH]))
+                    if off + LIVE_PUSH >= f.shape[1]:
+                        outs[k].append(encs[k].finish())
+        return [e.header() + b"".join(o) for e, o in zip(encs, outs)]
+
+    got = in_turns(cuda)
+    check(got == in_turns("cpu"), "live sender: StreamingEncoder on the card != device='cpu'")
+    print(f"[live] aad-b4-s128-ms-stereo, 960-sample pushes of feeds of {LIVE_FEEDS} samples/ch in turn, each "
+          f"finished after its last push: cuda == cpu, bit-exact")
+    feed = bench_pcm(RATE * LIVE_SECONDS, seed=SEED + 11)
+    enc = at.StreamingEncoder(cfg, device=cuda)
+    times, parts = [], []
+    k3, k4 = fe.launches[fe.STREAM_KERNEL], ep.launches[ep.PASS_KERNEL]
+    for off in range(0, feed.shape[1], LIVE_PUSH):
+        t0 = time.perf_counter()
+        parts.append(enc.push(feed[:, off: off + LIVE_PUSH]))
+        times.append(time.perf_counter() - t0)
+    parts.append(enc.finish())
+    pushes = len(times)
+    k3, k4 = fe.launches[fe.STREAM_KERNEL] - k3, ep.launches[ep.PASS_KERNEL] - k4
+    # the feed is whole pushes: the finish encodes nothing
+    check((k3, k4) == (pushes, pushes),
+          f"live sender: {k3} launches of kernel 3 and {k4} of kernel 4 over {pushes} whole pushes")
+    geo = cfg.geometry()
+    check(len(b"".join(parts)) == feed.shape[1] // geo.num_samples_per_block * geo.block_size,
+          "live sender: not every block came back")
+    q = np.quantile(np.array(times[1:]) * 1e3, [0.5, 0.95])
+    print(f"[live] one {LIVE_SECONDS}-s feed on the card, {pushes} pushes of 960 samples/ch (10 blocks): a push "
+          f"{q[0]:.4f} ms median, {q[1]:.4f} ms p95 by the host's clock (the first left out); launches a push: "
+          f"kernel 3 {k3 / pushes:.3f}, kernel 4 {k4 / pushes:.3f} ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -2173,7 +2235,7 @@ def main() -> int:
     # and the probes' kernels (phase 17 reports their build)
     t0 = time.perf_counter()
     pool = ThreadPoolExecutor(2)
-    if sys.argv[1:] != ["--sharding"]:
+    if sys.argv[1:] not in (["--sharding"], ["--live-encode"]):
         probes_build = pool.submit(lambda: (probes.build(), time.perf_counter() - t0))
     native_build = pool.submit(at.native.build)
     lib_path = _build.build()
@@ -2199,6 +2261,12 @@ def main() -> int:
         print(f"[shard] {torch.cuda.device_count()} cards: {every}")
         print(json.dumps({"sharding_launches": sharding_phase(cuda, card, dict(data=data, header=header), encoded)}))
         stamp("16 sharding")
+        return 0
+    if sys.argv[1:] == ["--live-encode"]:
+        live_encode_phase(cuda, card)
+        stamp("18 live sender")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
     if sys.argv[1:] == ["--probes"]:
         # phase 17 alone; nothing of a main path has run, so no probe launched on one
@@ -2434,6 +2502,9 @@ def main() -> int:
     # 17. the decode probes, kernels 6-8: on no main path, so their launches there are 0
     records += probes_phase(cuda, card, probes_build, probe_launches())
     stamp("17 probes")
+    # 18. a live stereo sender
+    live_encode_phase(cuda, card)
+    stamp("18 live sender")
 
     print(json.dumps({"kernels": records}))
     print(smi())
