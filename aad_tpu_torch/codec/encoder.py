@@ -63,7 +63,6 @@ from ..constants import (
     MAX_NUM_CHANNELS,
     block_header_size,
 )
-from ..format.framing import BlockStates, build_block_headers
 from ..format.geometry import (
     BlockGeometry,
     compute_block_geometry,
@@ -72,8 +71,8 @@ from ..format.geometry import (
     num_blocks_for,
 )
 from ..format.header import HeaderInfo, encode_header, validate_header
-from ..ops.encode import BlockHeaderFields, encode_blocks_parallel, lr_to_ms
-from ..ops.fused_encode import encode_stream
+from ..ops.encode import encode_blocks_parallel, lr_to_ms
+from ..ops.fused_encode import _block_bytes, _pad_to_blocks, encode_stream
 from .. import native as native_engine
 from ..utils.trace import span
 from .device import resolve_device
@@ -175,37 +174,12 @@ def _stage_blocks(pcm: np.ndarray, blocks: np.ndarray) -> None:
         blocks[full, :, n - full * nspb :] = 0
 
 
-def _pad_to_blocks(pcm: torch.Tensor, geo: BlockGeometry, first_block: int, num_blocks: int):
-    """Blocks [first_block, first_block + num_blocks) of (C, N) PCM.
-
-    Returns ((B, C, nspb) int16 zero-padded, valid (B,) int32): samples past
-    N read as zero and a block past the end has valid 0.
-    """
-    C, n = pcm.shape
-    nspb = geo.num_samples_per_block
-    s0 = first_block * nspb
-    span = pcm[:, s0 : s0 + num_blocks * nspb]
-    buf = torch.zeros((C, num_blocks * nspb), dtype=torch.int16, device=pcm.device)
-    buf[:, : span.shape[1]] = span
-    starts = (first_block + torch.arange(num_blocks, device=pcm.device)) * nspb
-    valid = torch.clamp(n - starts, 0, nspb).to(torch.int32)
-    return buf.reshape(C, num_blocks, nspb).transpose(0, 1), valid
-
-
 def payload_size(geo: BlockGeometry, num_samples: int) -> int:
     """Bytes of a stream's payload: whole blocks, the last one cut to the
     interleave units that cover its valid samples (as ``assemble_stream``)."""
     nb = num_blocks_for(num_samples, geo.num_samples_per_block)
     tail = encoded_block_bytes(geo, last_block_valid_samples(num_samples, geo.num_samples_per_block))
     return (nb - 1) * geo.block_size + tail
-
-
-def _block_bytes(headers: BlockHeaderFields, data: torch.Tensor, geo: BlockGeometry) -> torch.Tensor:
-    """Header fields + (B, *streams, data_bytes) data regions, the codes
-    packed (``encode_stream(..., pack=geo)``) -> (B, *streams, block_size)
-    whole blocks."""
-    states = BlockStates(headers.step_index, headers.weight, headers.history)
-    return torch.cat([build_block_headers(states, headers.shift, geo), data], dim=-1)
 
 
 def runs_in_chunks(num_blocks: int, parallel_blocks: bool) -> bool:

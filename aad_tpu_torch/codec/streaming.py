@@ -10,9 +10,12 @@ trial search reading the previous block at :502-512) is explicit here:
                                         once with a declared total)
 
 Chunk boundaries are arbitrary; the bytes equal a one-shot encode of the
-concatenated input. Each push runs the whole-stream encode kernel over its
-blocks with the carry of the push before (``ops.fused_encode.encode_stream``,
-kernels ``aad_encode_stream`` and ``aad_encode_pass``). On the decode side,
+concatenated input. Each push uploads its whole blocks' samples as they came
+and runs the whole-stream encode kernel's wire mode over them with the carry
+of the push before (``ops.fused_encode.encode_wire``, kernels
+``aad_encode_stream`` and ``aad_encode_pass``): the kernel pads, combines
+mid/side and writes the blocks' bytes, so a push on a card is the upload, the
+two kernels and the copy down. On the decode side,
 block self-containedness makes streaming direct: the whole blocks in the
 buffer decode at once, by ``Decoder``'s pipeline.
 
@@ -35,13 +38,12 @@ import torch
 from ..constants import CH_PROCESS_MS, FILE_HEADER_SIZE
 from ..format.geometry import encoded_block_bytes, geometry_from_header, num_blocks_for
 from ..format.header import HeaderInfo, decode_header, encode_header, validate_header
-from ..ops.encode import lr_to_ms
-from ..ops.fused_encode import encode_stream
+from ..ops.fused_encode import encode_wire
 from ..utils.trace import count, span
 from .. import native as native_engine
 from .decoder import Decoder, resolve_engine
 from .device import resolve_device
-from .encoder import EncodeConfig, _block_bytes, _pad_to_blocks, as_int16, payload_size
+from .encoder import EncodeConfig, as_int16, payload_size
 from .encoder import resolve_engine as resolve_encode_engine
 from .result import InvalidArgumentError
 
@@ -131,16 +133,13 @@ class StreamingEncoder:
             count("h2d_bytes", pcm.nbytes)
             pcm_t = torch.from_numpy(np.ascontiguousarray(pcm)).to(self.device)
         with span("aad.stream_encode.blocks"):
-            blocks, valid = _pad_to_blocks(pcm_t, geo, 0, nblocks)
-            if cfg.ch_process_method == CH_PROCESS_MS:
-                blocks = lr_to_ms(blocks).to(torch.int16)
-            # on a card, kernel 3 on the blocks, then kernel 4 rebuilds the carry
-            headers, data, self._carry = encode_stream(
-                blocks, valid, cfg.bits_per_sample, cfg.num_encode_trials,
-                carry=self._carry, blocks_before=self._blocks_done, need_carry=True, pack=geo,
+            # on a card, kernel 3 writes the blocks' bytes, then kernel 4 rebuilds the carry
+            rows, self._carry = encode_wire(
+                pcm_t, geo, cfg.num_encode_trials, mid_side=cfg.ch_process_method == CH_PROCESS_MS,
+                carry=self._carry, blocks_before=self._blocks_done,
             )
             count("stream_encode_carried", 1)
-            payload = _block_bytes(headers, data, geo).reshape(-1)[: payload_size(geo, n)]
+            payload = rows.reshape(-1)[: payload_size(geo, n)]
         self._blocks_done += nblocks
         self._samples_done += n
         with span("aad.d2h"):

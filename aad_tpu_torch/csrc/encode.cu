@@ -119,7 +119,17 @@
 // chunked-DMA variant, the f32 step-size formula with its correction set,
 // and the two-limb error sum (int64 here).
 //
-// Both entry points have a plain C interface (bound with ctypes), launch on
+// The wire mode (aad_encode_stream_wire, StreamingEncoder's one launch a
+// push; struct Wire): kernel 3 takes a stream's samples as uploaded, (C, n)
+// channel-major int16, pads each lane's blocks with zeros past n, takes each
+// block's valid count from n, combines mid/side, and writes each block as
+// the wire holds it: the header bytes, then the packed data region. It also
+// leaves the last block's samples and header state where kernel 4 and the
+// next launch read them, so nothing is relaid between launches. It is a
+// template parameter of both schedules; the other instances compile as
+// before.
+//
+// The entry points have a plain C interface (bound with ctypes), launch on
 // the stream they are given, allocate nothing and return the cudaError_t of
 // the launch.
 
@@ -450,8 +460,101 @@ __device__ __forceinline__ void store_header(int32_t* hdr, int64_t stride, const
   hdr[9 * stride] = shift;
 }
 
-// The serial schedule (see the top).
-template <int BPS, bool kPacked>
+// The wire mode's inputs and outputs (see the top). Before anything else
+// each CTA pads, and for mid/side combines, its lanes' samples into `ms`,
+// the layout every pass reads; each header goes to its row as bytes, the
+// data region after it.
+struct Wire {
+  const int16_t* pcm;   // (L / C, C, n): each row's channels, channel-major
+  int16_t* ms;          // (B, nspb, L) out: the samples the passes read, time-major, zero past n
+  uint8_t* rows;        // (B, L / C, block_bytes) out: whole blocks, the header then the data region
+  int32_t* seed_index;  // (L,) out: the last block's header state, kernel 4's entry state
+  int32_t* seed_history;  // (L, 4) out
+  int32_t* seed_weight;   // (L, 4) out
+  long long n;            // samples a channel
+  long long block_stride;  // bytes a block of rows: L / C * block_bytes
+  int block_bytes;
+  int mid_side;  // two channels: lane 2r takes mid = (L + R) >> 1, lane 2r + 1 side = (L - R) >> 1
+
+  // Block b's row of `lane`, lane / C (C is 1 or 2).
+  __device__ __forceinline__ uint8_t* row(int b, int64_t lane, int C) const {
+    return rows + b * block_stride + (C == 2 ? lane >> 1 : lane) * block_bytes;
+  }
+
+  // block b's valid samples
+  __device__ __forceinline__ int32_t valid(int b, int nspb) const {
+    return static_cast<int32_t>(min(max(n - static_cast<long long>(b) * nspb, 0LL), static_cast<long long>(nspb)));
+  }
+
+  // The samples of lanes [lane0, lane0 + lanes) (whole rows) of every block
+  // into ms, all threads of the CTA taking part: a thread a sample position
+  // of a row at a time, its C samples read once. Mid/side as
+  // ops/encode.py::lr_to_ms computes it, in int32 (src/aad_encoder.c:413-428).
+  // A barrier must follow.
+  __device__ __forceinline__ void stage(int64_t lane0, int lanes, int num_blocks, int nspb, int64_t L,
+                                        int C) const {
+    constexpr int kBatch = 8;  // positions a thread loads before it stores any
+    const int64_t positions = static_cast<int64_t>(num_blocks) * nspb;
+    for (int64_t lane = lane0; lane < lane0 + lanes; lane += C) {
+      const int16_t* src = pcm + lane * n;
+      for (int64_t first = threadIdx.x; first < positions; first += kBatch * blockDim.x) {
+        int32_t x0[kBatch], x1[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int64_t pos = first + u * blockDim.x;
+          x0[u] = pos < n ? src[pos] : 0;
+          x1[u] = C == 2 && pos < n ? src[n + pos] : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int64_t pos = first + u * blockDim.x;
+          if (pos >= positions) break;
+          int32_t a = x0[u], b = x1[u];
+          if (mid_side) {
+            a = clip16(asr(x0[u] + x1[u], 1));
+            b = clip16(asr(x0[u] - x1[u], 1));
+          }
+          int16_t* dst = ms + pos * L + lane;
+          dst[0] = static_cast<int16_t>(a);
+          if (C == 2) dst[1] = static_cast<int16_t>(b);
+        }
+      }
+    }
+  }
+
+  // Block b's header of `lane` (channel lane % C of row lane / C) as the
+  // wire holds it (src/aad_encoder.c:618-655): the big-endian u16 (step
+  // index << 4) | (shift & 0xF), then (w_k >> shift) & 0xFFFF and h_k &
+  // 0xFFFF for each tap, as format/framing.py::build_block_headers lays it
+  // out; and, the last block's, its state as kernel 4 reads it.
+  __device__ __forceinline__ void put_header(int b, int64_t lane, int C, bool last, const State& s,
+                                             int32_t shift) const {
+    uint8_t* p = row(b, lane, C) + (C == 2 ? static_cast<int>(lane & 1) : 0) * kChannelHeaderBytes;
+    const int32_t u16[9] = {(s.idx << kTablesDigits) | (shift & 0xF), asr(s.w0, shift), s.h0, asr(s.w1, shift), s.h1,
+                            asr(s.w2, shift), s.h2, asr(s.w3, shift), s.h3};
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      p[2 * k] = static_cast<uint8_t>((u16[k] >> 8) & 0xFF);
+      p[2 * k + 1] = static_cast<uint8_t>(u16[k] & 0xFF);
+    }
+    if (last) {
+      seed_index[lane] = s.idx;
+      int32_t* h = seed_history + 4 * lane;
+      int32_t* w = seed_weight + 4 * lane;
+      h[0] = s.h0;
+      h[1] = s.h1;
+      h[2] = s.h2;
+      h[3] = s.h3;
+      w[0] = s.w0;
+      w[1] = s.w1;
+      w[2] = s.w2;
+      w[3] = s.w3;
+    }
+  }
+};
+
+// The serial schedule (see the top); kWire, the wire mode (struct Wire).
+template <int BPS, bool kPacked, bool kWire>
 __global__ void __launch_bounds__(kEncodeThreads)
     encode_stream_kernel(const int16_t* __restrict__ samples,    // (B, nspb, L) time-major
                          const int16_t* __restrict__ prev0,      // (nspb, L), or null if unread
@@ -465,10 +568,16 @@ __global__ void __launch_bounds__(kEncodeThreads)
                          int32_t* __restrict__ headers,          // (B, 10, L)
                          int32_t* __restrict__ states,           // (B, 9, L), or null
                          int num_blocks, int num_lanes, int nspb, int num_channels, int num_trials,
-                         int warm_on_prev, int blocks_before) {
+                         int warm_on_prev, int blocks_before, const Wire wire) {
+  static_assert(!kWire || kPacked, "the wire mode writes the data regions packed");
   using Unit = CodeUnit<BPS, kPacked>;
   __shared__ int32_t s_step[kStepTableSize];
   __shared__ uint8_t s_stage[kEncodeThreads / 32][kStageWarpBytes];
+  if constexpr (kWire) {  // stage_tables' barrier orders it before every pass
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+    wire.stage(first, static_cast<int>(min(int64_t{blockDim.x}, num_lanes - first)), num_blocks, nspb, num_lanes,
+               num_channels);
+  }
   const Tables<BPS> tb = stage_tables<BPS>(s_step, step_table, index_table);
 
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -485,11 +594,14 @@ __global__ void __launch_bounds__(kEncodeThreads)
   StagedRows<Unit> staged{s_stage[threadIdx.x / 32], nullptr, row_bytes, pitch, unit_bytes,
                           static_cast<int>(min(int64_t{32}, L - warp_lane0) / C),
                           (in_warp / C) * pitch + (in_warp % C) * Unit::kBytes, mask};
-  State st = load_state(step_index, history, weight, lane);
+  if constexpr (kWire) staged.row_bytes = wire.block_bytes;
+  // the wire mode's first push has no carry: a zero state
+  State st = kWire && step_index == nullptr ? State{} : load_state(step_index, history, weight, lane);
 
   for (int b = 0; b < num_blocks; ++b) {
     const int16_t* cur = samples + static_cast<int64_t>(b) * nspb * L + lane;
-    const int32_t v = valid[static_cast<int64_t>(b) * L + lane];
+    if constexpr (kWire) cur = wire.ms + static_cast<int64_t>(b) * nspb * L + lane;
+    const int32_t v = kWire ? wire.valid(b, nspb) : valid[static_cast<int64_t>(b) * L + lane];
     // fewer than 4 valid samples: the reference's early return, state
     // untouched and zero error (src/aad_encoder.c:443-455)
     const bool head_ok = v >= kFilterOrder;
@@ -506,6 +618,7 @@ __global__ void __launch_bounds__(kEncodeThreads)
         const bool has_prev = b + blocks_before >= 1;
         // block 0's previous block is the carry's (prev0), read only then
         const int16_t* prev = b == 0 ? prev0 : samples + static_cast<int64_t>(b - 1) * nspb * L;
+        if constexpr (kWire) prev = b == 0 ? prev0 : wire.ms + static_cast<int64_t>(b - 1) * nspb * L;
         State walker = st;
         for (int i = 0; i < num_trials; ++i) {
           if (has_prev) {  // always the full previous block
@@ -545,11 +658,19 @@ __global__ void __launch_bounds__(kEncodeThreads)
     // block header: seed, round weights, snapshot (src/aad_encoder.c:618-655)
     int32_t shift;
     st = header_state(st, cur, L, shift);
-    store_header(headers + static_cast<int64_t>(b) * kHeaderFields * L + lane, L, st, shift);
+    if constexpr (kWire) {
+      wire.put_header(b, lane, C, b == num_blocks - 1, st, shift);
+    } else {
+      store_header(headers + static_cast<int64_t>(b) * kHeaderFields * L + lane, L, st, shift);
+    }
 
     // data section: every slot of the padded block (src/aad_encoder.c:661-722)
     if constexpr (kPacked) {
-      staged.out = codes + (static_cast<int64_t>(b) * (L / C) + warp_lane0 / C) * row_bytes;
+      if constexpr (kWire) {  // the data region after the row's header
+        staged.out = wire.row(b, warp_lane0, C) + C * kChannelHeaderBytes;
+      } else {
+        staged.out = codes + (static_cast<int64_t>(b) * (L / C) + warp_lane0 / C) * row_bytes;
+      }
       st = staged.emit(st, cur + kFilterOrder * L, L, T, tb);
     } else {
       ByteCodes to{codes + static_cast<int64_t>(b) * T * L + lane, L};
@@ -582,8 +703,8 @@ __device__ __forceinline__ void stage_column(int16_t* tile, const int16_t* __res
 // the passes read in place of device memory; then, packed, two copies of
 // the CTA's rows of the block's data regions, (lanes a CTA / C, row_bytes)
 // each: the adopted emits' and the speculative one's; unpacked, the
-// speculative codes, (T, lanes a CTA).
-template <int BPS, bool kStaged, bool kPacked>
+// speculative codes, (T, lanes a CTA). kWire: the wire mode (struct Wire).
+template <int BPS, bool kStaged, bool kPacked, bool kWire>
 __global__ void __launch_bounds__(2 * kPairLanes)
     encode_stream_paired_kernel(const int16_t* __restrict__ samples,    // (B, nspb, L) time-major
                                 const int16_t* __restrict__ prev0,      // (nspb, L)
@@ -597,11 +718,17 @@ __global__ void __launch_bounds__(2 * kPairLanes)
                                 int32_t* __restrict__ headers,          // (B, 10, L)
                                 int32_t* __restrict__ states,           // (B, 9, L), or null
                                 int num_blocks, int num_lanes, int nspb, int num_channels, int num_trials,
-                                int blocks_before) {
+                                int blocks_before, const Wire wire) {
+  static_assert(!kWire || kPacked, "the wire mode writes the data regions packed");
   using Unit = CodeUnit<BPS, kPacked>;
   extern __shared__ uint8_t s_dyn[];
   __shared__ int32_t s_step[kStepTableSize];
   __shared__ uint8_t s_sink[2 * kPairLanes];  // the codes of a pass that keeps none
+  if constexpr (kWire) {  // stage_tables' barrier orders it before every pass
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 2);
+    wire.stage(first, static_cast<int>(min(int64_t{blockDim.x / 2}, num_lanes - first)), num_blocks, nspb,
+               num_lanes, num_channels);
+  }
   const Tables<BPS> tb = stage_tables<BPS>(s_step, step_table, index_table);
 
   const int per_cta = blockDim.x / 2;
@@ -635,22 +762,27 @@ __global__ void __launch_bounds__(2 * kPairLanes)
   uint8_t* const spec_codes = kPacked ? kept_codes + per_cta / num_channels * row_bytes : s_codes + local;
   const int64_t spec_stride = kPacked ? unit_bytes : per_cta;
   const int64_t xs = kStaged ? per_cta : L;  // the samples' stride
-  State st = load_state(step_index, history, weight, lane);
+  // the wire mode's first push has no carry: a zero state, and no block before block 0
+  State st = kWire && step_index == nullptr ? State{} : load_state(step_index, history, weight, lane);
 
   for (int b = 0; b < num_blocks; ++b) {
     const int16_t* cur = samples + static_cast<int64_t>(b) * nspb * L + lane;
     const int16_t* prev = (b == 0 ? prev0 : samples + static_cast<int64_t>(b - 1) * nspb * L) + lane;
+    if constexpr (kWire) {
+      cur = wire.ms + static_cast<int64_t>(b) * nspb * L + lane;
+      prev = (b == 0 ? prev0 : wire.ms + static_cast<int64_t>(b - 1) * nspb * L) + lane;
+    }
     if constexpr (kStaged) {  // block b in tile b % 2; block b - 1 already in the other
       int16_t* const cur_tile = s_tiles + (b & 1) * tile;
       int16_t* const prev_tile = s_tiles + ((b + 1) & 1) * tile;
       __syncwarp(mask);  // every pass over block b - 1 (and so over tile b % 2) is done
-      if (b == 0) stage_column(prev_tile, prev, L, nspb, per_cta, side);
+      if (b == 0 && (!kWire || prev0 != nullptr)) stage_column(prev_tile, prev, L, nspb, per_cta, side);
       stage_column(cur_tile, cur, L, nspb, per_cta, side);
       __syncwarp(mask);
       cur = cur_tile;
       prev = prev_tile;
     }
-    const int32_t v = valid[static_cast<int64_t>(b) * L + lane];
+    const int32_t v = kWire ? wire.valid(b, nspb) : valid[static_cast<int64_t>(b) * L + lane];
     // fewer than 4 valid samples: no measure runs, the error is 0 and no
     // candidate is adopted (src/aad_encoder.c:443-455)
     const int n_measure = v >= kFilterOrder ? clip(v - kFilterOrder, 0, T) : -1;
@@ -692,7 +824,11 @@ __global__ void __launch_bounds__(2 * kPairLanes)
         if (s == 1 || (chain_warms && better)) {  // adopted: codes and header in place
           n = T;
           to = UnitCodes<Unit>{out, out_stride, 1, 0};
-          store_header(hdr, L, entry, shift);
+          if constexpr (kWire) {
+            wire.put_header(b, lane, num_channels, b == num_blocks - 1, entry, shift);
+          } else {
+            store_header(hdr, L, entry, shift);
+          }
         } else if (s == last_measure) {  // candidate N, before better_N is known
           n = T;
           to = UnitCodes<Unit>{spec_codes, spec_stride, 1, 0};
@@ -722,10 +858,27 @@ __global__ void __launch_bounds__(2 * kPairLanes)
 #pragma unroll
         for (int i = 0; i < Unit::kBytes; ++i) out[u * out_stride + i] = spec_codes[u * spec_stride + i];
       }
-      store_header(hdr, L, spec_entry, spec_shift);
+      if constexpr (kWire) {
+        wire.put_header(b, lane, num_channels, b == num_blocks - 1, spec_entry, spec_shift);
+      } else {
+        store_header(hdr, L, spec_entry, spec_shift);
+      }
       kept = spec_end;
     }
-    if constexpr (kPacked) {
+    if constexpr (kWire) {
+      // the data regions of the CTA's rows of block b, each after its
+      // row's header, by its active threads (a prefix of the warp)
+      __syncwarp(mask);
+      uint8_t* const dst = wire.row(b, lane0, num_channels) + num_channels * kChannelHeaderBytes;
+      const int active = __popc(mask);
+      const int rows = static_cast<int>(cta_bytes / row_bytes);
+      for (int r = 0; r < rows; ++r) {
+        for (int k = threadIdx.x; k < row_bytes; k += active) {
+          dst[r * wire.block_bytes + k] = s_codes[r * row_bytes + k];
+        }
+      }
+      __syncwarp(mask);  // the copies are free again
+    } else if constexpr (kPacked) {
       // the CTA's rows of block b, consecutive bytes, by its active threads
       // (a prefix of the warp)
       __syncwarp(mask);
@@ -800,6 +953,62 @@ inline int paired_lanes_per_cta(int64_t lane_bytes, int num_channels) {
   return per_cta >= num_channels ? per_cta : 0;
 }
 
+// A launch of aad_encode_stream's schedule: paired where the trial search
+// warms on the previous block (and a lane fits a CTA), staged where the
+// launch is narrow; serial where per_cta is 0.
+struct Schedule {
+  int per_cta;
+  bool staged;
+  size_t smem;  // dynamic shared memory a paired CTA
+};
+
+inline Schedule schedule(int nspb, int bits_per_sample, bool packed, int num_trials, bool warm_on_prev,
+                         int num_lanes, int num_channels) {
+  const auto lane_bytes = [&](bool stage) { return paired_lane_bytes(nspb, bits_per_sample, packed, stage); };
+  const bool paired = num_trials > 0 && warm_on_prev;
+  const bool staged = paired && num_lanes <= kStageMaxLanes && paired_lanes_per_cta(lane_bytes(true), num_channels) > 0;
+  const int per_cta = paired ? paired_lanes_per_cta(lane_bytes(staged), num_channels) : 0;
+  return Schedule{per_cta, staged, static_cast<size_t>(per_cta * lane_bytes(staged))};
+}
+
+// One launch of kernel 3 on stream s in schedule sc.
+template <int BPS, bool kPacked, bool kWire>
+cudaError_t launch_stream(const Schedule& sc, cudaStream_t s, const void* samples, const void* prev0,
+                          const void* valid, const void* step_index, const void* history, const void* weight,
+                          const void* step_table, const void* index_table, void* codes, void* headers, void* states,
+                          int num_blocks, int num_lanes, int nspb, int num_channels, int num_trials,
+                          int warm_on_prev, int blocks_before, const Wire& wire) {
+  const auto* x = static_cast<const int16_t*>(samples);
+  const auto* p0 = static_cast<const int16_t*>(prev0);
+  const auto* va = static_cast<const int32_t*>(valid);
+  const auto* si = static_cast<const int32_t*>(step_index);
+  const auto* hi = static_cast<const int32_t*>(history);
+  const auto* we = static_cast<const int32_t*>(weight);
+  const auto* st = static_cast<const int32_t*>(step_table);
+  const auto* it = static_cast<const int32_t*>(index_table);
+  auto* co = static_cast<uint8_t*>(codes);
+  auto* hd = static_cast<int32_t*>(headers);
+  auto* bs = static_cast<int32_t*>(states);
+  if (sc.per_cta > 0) {
+    const dim3 grid((num_lanes + sc.per_cta - 1) / sc.per_cta), block(2 * sc.per_cta);
+    if (sc.staged) {
+      encode_stream_paired_kernel<BPS, true, kPacked, kWire><<<grid, block, sc.smem, s>>>(
+          x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
+          blocks_before, wire);
+    } else {
+      encode_stream_paired_kernel<BPS, false, kPacked, kWire><<<grid, block, sc.smem, s>>>(
+          x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
+          blocks_before, wire);
+    }
+  } else {
+    const dim3 grid((num_lanes + kEncodeThreads - 1) / kEncodeThreads);
+    encode_stream_kernel<BPS, kPacked, kWire><<<grid, dim3(kEncodeThreads), 0, s>>>(
+        x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
+        warm_on_prev, blocks_before, wire);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace aad
 
 extern "C" {
@@ -814,53 +1023,50 @@ int aad_encode_stream(const void* samples, const void* prev0, const void* valid,
                       int blocks_before, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the schedule: paired where the trial search warms on the previous block
-  // (and a lane fits a CTA), staged where the launch is narrow
   if (num_channels < 1 || num_channels > 2 || num_lanes % num_channels != 0 || (!packed && num_channels != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto lane_bytes = [&](bool stage) { return aad::paired_lane_bytes(nspb, bits_per_sample, packed, stage); };
-  const bool paired = num_trials > 0 && warm_on_prev;
-  const bool staged =
-      paired && num_lanes <= aad::kStageMaxLanes && aad::paired_lanes_per_cta(lane_bytes(true), num_channels) > 0;
-  const int per_cta = paired ? aad::paired_lanes_per_cta(lane_bytes(staged), num_channels) : 0;
+  const aad::Schedule sc =
+      aad::schedule(nspb, bits_per_sample, packed, num_trials, warm_on_prev, num_lanes, num_channels);
   const auto launch = [&](auto bps, auto pack) {
-    constexpr int kBps = decltype(bps)::value;
-    constexpr bool kPacked = decltype(pack)::value;
-    const auto* x = static_cast<const int16_t*>(samples);
-    const auto* p0 = static_cast<const int16_t*>(prev0);
-    const auto* va = static_cast<const int32_t*>(valid);
-    const auto* si = static_cast<const int32_t*>(step_index);
-    const auto* hi = static_cast<const int32_t*>(history);
-    const auto* we = static_cast<const int32_t*>(weight);
-    const auto* st = static_cast<const int32_t*>(step_table);
-    const auto* it = static_cast<const int32_t*>(index_table);
-    auto* co = static_cast<uint8_t*>(codes);
-    auto* hd = static_cast<int32_t*>(headers);
-    auto* bs = static_cast<int32_t*>(states);
-    if (per_cta > 0) {
-      const dim3 grid((num_lanes + per_cta - 1) / per_cta), block(2 * per_cta);
-      const size_t smem = static_cast<size_t>(per_cta * lane_bytes(staged));
-      if (staged) {
-        aad::encode_stream_paired_kernel<kBps, true, kPacked><<<grid, block, smem, s>>>(
-            x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
-            blocks_before);
-      } else {
-        aad::encode_stream_paired_kernel<kBps, false, kPacked><<<grid, block, smem, s>>>(
-            x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
-            blocks_before);
-      }
-    } else {
-      const dim3 grid((num_lanes + aad::kEncodeThreads - 1) / aad::kEncodeThreads);
-      aad::encode_stream_kernel<kBps, kPacked><<<grid, dim3(aad::kEncodeThreads), 0, s>>>(
-          x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
-          warm_on_prev, blocks_before);
-    }
-    return cudaGetLastError();
+    return aad::launch_stream<decltype(bps)::value, decltype(pack)::value, false>(
+        sc, static_cast<cudaStream_t>(stream), samples, prev0, valid, step_index, history, weight, step_table,
+        index_table, codes, headers, states, num_blocks, num_lanes, nspb, num_channels, num_trials, warm_on_prev,
+        blocks_before, aad::Wire{});
   };
   return static_cast<int>(aad::dispatch_bps(bits_per_sample, [&](auto bps) {
     return packed ? launch(bps, std::true_type{}) : launch(bps, std::false_type{});
+  }));
+}
+
+// Kernel 3's wire mode (aad::Wire), the trial search warming on the
+// previous block: pcm (L / C, C, n) int16 in; ms (B, nspb, L) int16, rows
+// (B, L / C, block_bytes) uint8 and the last block's header state
+// (seed_index (L,), seed_history and seed_weight (L, 4) int32) out. The
+// initial state and prev0 (nspb, L) are the carry's; all four null for a
+// stream's first blocks (blocks_before 0): a zero state.
+int aad_encode_stream_wire(const void* pcm, long long n, const void* prev0, const void* step_index,
+                           const void* history, const void* weight, const void* step_table,
+                           const void* index_table, void* ms, void* rows, void* seed_index, void* seed_history,
+                           void* seed_weight, int num_blocks, int num_lanes, int nspb, int num_channels,
+                           int bits_per_sample, int block_bytes, int mid_side, int num_trials, int blocks_before,
+                           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_channels < 1 || num_channels > 2 || num_lanes % num_channels != 0 || (mid_side && num_channels != 2) ||
+      (step_index == nullptr && blocks_before != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const aad::Schedule sc = aad::schedule(nspb, bits_per_sample, true, num_trials, true, num_lanes, num_channels);
+  const aad::Wire wire{static_cast<const int16_t*>(pcm), static_cast<int16_t*>(ms), static_cast<uint8_t*>(rows),
+                       static_cast<int32_t*>(seed_index), static_cast<int32_t*>(seed_history),
+                       static_cast<int32_t*>(seed_weight), n,
+                       static_cast<long long>(num_lanes / num_channels) * block_bytes, block_bytes, mid_side};
+  return static_cast<int>(aad::dispatch_bps(bits_per_sample, [&](auto bps) {
+    return aad::launch_stream<decltype(bps)::value, true, true>(
+        sc, static_cast<cudaStream_t>(stream), nullptr, prev0, nullptr, step_index, history, weight, step_table,
+        index_table, nullptr, nullptr, nullptr, num_blocks, num_lanes, nspb, num_channels, num_trials, 1,
+        blocks_before, wire);
   }));
 }
 

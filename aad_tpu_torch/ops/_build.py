@@ -53,6 +53,11 @@ _SIGNATURES = {
     # num_channels, bits_per_sample, packed, num_trials, warm_on_prev,
     # blocks_before, device, stream
     "aad_encode_stream": (_P,) * 11 + (_I,) * 10 + (_P,),
+    # pcm, n, prev0, step_index, history, weight, step_table, index_table, ms,
+    # rows, seed_index, seed_history, seed_weight, num_blocks, num_lanes,
+    # nspb, num_channels, bits_per_sample, block_bytes, mid_side, num_trials,
+    # blocks_before, device, stream
+    "aad_encode_stream_wire": (_P, ctypes.c_longlong) + (_P,) * 11 + (_I,) * 10 + (_P,),
     # samples, step_index, history, weight, valid, step_table, index_table,
     # codes, step_index_out, history_out, weight_out, sse_out, num_lanes,
     # num_codes, bits_per_sample, device, stream

@@ -65,6 +65,7 @@ def encode_pass(
     valid: torch.Tensor,
     bits_per_sample: int,
     emit_codes: bool = False,
+    out: tuple[CodecState, torch.Tensor] | None = None,
 ):
     """One encode pass over one block of each of L lanes.
 
@@ -78,6 +79,8 @@ def encode_pass(
         t < valid - 4.
       emit_codes: also return the codes of all T slots (past ``valid`` each
         comes from the frozen state), else only measure.
+      out: on a card, (state, sse) buffers, shaped and typed as the result's,
+        that the kernel writes in place of new ones; the result is them.
     Returns:
       (final CodecState, codes (T, L) uint8 or None, sse (L,) int64: the sum
       of the live slots' wrapped squared errors).
@@ -102,18 +105,26 @@ def encode_pass(
     _require(device.type == "cuda", f"no kernel for device {device}")
     for name, t in (("samples", samples_tm), ("valid", valid), *zip(CodecState._fields, state)):
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    return _launch(samples_tm, state, valid, bits_per_sample, emit_codes)
+    return _launch(samples_tm, state, valid, bits_per_sample, emit_codes, out)
 
 
-def _launch(samples_tm, state, valid, bits_per_sample, emit_codes):
+def _launch(samples_tm, state, valid, bits_per_sample, emit_codes, given=None):
     T, L = samples_tm.shape
     device = samples_tm.device
-    out = CodecState(
-        history=torch.empty((L, FILTER_ORDER), dtype=torch.int32, device=device),
-        weight=torch.empty((L, FILTER_ORDER), dtype=torch.int32, device=device),
-        step_index=torch.empty((L,), dtype=torch.int32, device=device),
-    )
-    sse = torch.empty((L,), dtype=torch.int64, device=device)
+    if given is None:
+        out = CodecState(
+            history=torch.empty((L, FILTER_ORDER), dtype=torch.int32, device=device),
+            weight=torch.empty((L, FILTER_ORDER), dtype=torch.int32, device=device),
+            step_index=torch.empty((L,), dtype=torch.int32, device=device),
+        )
+        sse = torch.empty((L,), dtype=torch.int64, device=device)
+    else:
+        out, sse = given
+        want = ((torch.int32, (L, FILTER_ORDER)), (torch.int32, (L, FILTER_ORDER)), (torch.int32, (L,)),
+                (torch.int64, (L,)))
+        for t, (dtype, shape) in zip((*out, sse), want):
+            _require(t.dtype == dtype and tuple(t.shape) == shape and t.device == device and t.is_contiguous(),
+                     f"out must be contiguous {dtype} {shape} on {device}")
     codes = torch.empty((T, L), dtype=torch.uint8, device=device) if emit_codes else None
     if L == 0:
         return out, codes, sse

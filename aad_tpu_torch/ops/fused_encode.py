@@ -24,6 +24,17 @@ second thread of each lane, so a block takes 2N passes of latency in place
 of 2N + 2; a narrow launch also stages its samples in shared memory
 (``csrc/encode.cu``). The block-parallel mode keeps the serial trial search.
 
+:func:`encode_wire` -> ``aad_encode_stream_wire``, the kernel's wire mode,
+for ``StreamingEncoder``: it takes a stream's samples as uploaded and writes
+its blocks as the wire holds them (the zero padding, each block's valid
+count, mid/side and the header bytes in the kernel, where the plain version
+composes :func:`_pad_to_blocks`, ``lr_to_ms``, :func:`encode_stream_reference`
+and :func:`_block_bytes`), and leaves the carry where kernel 4 and the next
+launch read it (:class:`WireCarry`): a push is the upload, kernels 3 and 4
+and the copy down. While a profiler records (``utils.trace``) it counts the
+blocks whose whole bytes the kernel wrote (``k3_rows_written``) and, of
+them, those whose mid/side it combined (``k3_rows_ms``).
+
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. Nothing falls back. :data:`launches` counts kernel launches.
 
@@ -45,15 +56,17 @@ Not carried over from the TPU kernel, because they exist only for the TPU:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..constants import FILTER_ORDER
-from ..format.geometry import BlockGeometry
-from ..utils.trace import span
+from ..format.framing import BlockStates, build_block_headers
+from ..format.geometry import BlockGeometry, num_blocks_for
+from ..utils.trace import count, span
 from . import _build, bitpack
-from .encode import BlockHeaderFields, _lane_valid, encode_stream_blocks_carry
+from .encode import BlockHeaderFields, _lane_valid, encode_stream_blocks_carry, lr_to_ms
 from .encode_pass import encode_pass
 from .transitions import CodecState, index_table, stepsize_table
 
@@ -75,6 +88,31 @@ def encode_stream_reference(blocks, valid, bits_per_sample: int, num_trials: int
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def _pad_to_blocks(pcm: torch.Tensor, geo: BlockGeometry, first_block: int, num_blocks: int):
+    """Blocks [first_block, first_block + num_blocks) of (C, N) PCM.
+
+    Returns ((B, C, nspb) int16 zero-padded, valid (B,) int32): samples past
+    N read as zero and a block past the end has valid 0.
+    """
+    C, n = pcm.shape
+    nspb = geo.num_samples_per_block
+    s0 = first_block * nspb
+    part = pcm[:, s0 : s0 + num_blocks * nspb]
+    buf = torch.zeros((C, num_blocks * nspb), dtype=torch.int16, device=pcm.device)
+    buf[:, : part.shape[1]] = part
+    starts = (first_block + torch.arange(num_blocks, device=pcm.device)) * nspb
+    valid = torch.clamp(n - starts, 0, nspb).to(torch.int32)
+    return buf.reshape(C, num_blocks, nspb).transpose(0, 1), valid
+
+
+def _block_bytes(headers: BlockHeaderFields, data: torch.Tensor, geo: BlockGeometry) -> torch.Tensor:
+    """Header fields + (B, *streams, data_bytes) data regions, the codes
+    packed (``encode_stream(..., pack=geo)``) -> (B, *streams, block_size)
+    whole blocks."""
+    states = BlockStates(headers.step_index, headers.weight, headers.history)
+    return torch.cat([build_block_headers(states, headers.shift, geo), data], dim=-1)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -258,3 +296,132 @@ def _launch(blocks, valid, bits_per_sample, num_trials, *, carry, blocks_before,
         weight=final.weight.reshape(*lanes, FILTER_ORDER), step_index=final.step_index.reshape(*lanes),
     )
     return hdr, codes, (final, blocks[-1])
+
+
+class WireCarry:
+    """What kernel 3's wire mode carries on a card from one launch to the
+    next, in buffers that the stream's encoder owns: the state kernel 4 left
+    after the last block, and that block's samples (mid/side applied, time-
+    major), where kernel 3 wrote them. Two sets, used in turn, so that no
+    launch reads what it writes."""
+
+    def __init__(self, lanes: int, nspb: int, device: torch.device):
+        # per set: the last block's header state (kernel 4's entry), then
+        # kernel 4's end state; each (L,) step index, (L, 4) history, (L, 4) weight
+        self._states = torch.empty((2, 2, 9 * lanes), dtype=torch.int32, device=device)
+        self.sse = torch.empty((lanes,), dtype=torch.int64, device=device)  # kernel 4's error sum: unread
+        self._samples = [torch.empty((0, nspb, lanes), dtype=torch.int16, device=device) for _ in range(2)]
+        self.turn = 0    # the set the last launch wrote
+        self.blocks = 0  # that launch's blocks
+
+    def header_state(self, turn: int) -> CodecState:
+        """Set ``turn``'s last block's header state."""
+        return self._state(turn, 0)
+
+    def end_state(self, turn: int) -> CodecState:
+        """Set ``turn``'s state after its last block."""
+        return self._state(turn, 1)
+
+    def _state(self, turn: int, which: int) -> CodecState:
+        flat = self._states[turn, which]
+        L = flat.shape[0] // 9
+        return CodecState(history=flat[L : 5 * L].view(L, FILTER_ORDER),
+                          weight=flat[5 * L :].view(L, FILTER_ORDER), step_index=flat[:L])
+
+    def samples(self, turn: int, num_blocks: int) -> torch.Tensor:
+        """Set ``turn``'s (num_blocks, nspb, L) samples buffer, grown to fit."""
+        buf = self._samples[turn]
+        if buf.shape[0] < num_blocks:
+            buf = self._samples[turn] = torch.empty((num_blocks, *buf.shape[1:]), dtype=buf.dtype, device=buf.device)
+        return buf[:num_blocks]
+
+    def prev_block(self) -> torch.Tensor:
+        """The last launch's last block, (nspb, L) time-major."""
+        return self._samples[self.turn][self.blocks - 1]
+
+
+def encode_wire_reference(pcm, geo: BlockGeometry, num_trials: int, *, mid_side: bool = False, carry=None,
+                          blocks_before: int = 0):
+    """The plain version of kernel 3's wire mode, on any device: the blocks
+    of :func:`_pad_to_blocks`, mid/side by ``lr_to_ms``, the encode of
+    :func:`encode_stream_reference`, the rows of :func:`_block_bytes`; the
+    carry is ``encode_stream_blocks_carry``'s."""
+    blocks, valid = _pad_to_blocks(pcm, geo, 0, num_blocks_for(pcm.shape[1], geo.num_samples_per_block))
+    if mid_side:
+        blocks = lr_to_ms(blocks).to(torch.int16)
+    headers, data, carry = encode_stream_reference(blocks, valid, geo.bits_per_sample, num_trials, carry=carry,
+                                                   blocks_before=blocks_before, pack=geo)
+    return _block_bytes(headers, data, geo), carry
+
+
+def encode_wire(pcm: torch.Tensor, geo: BlockGeometry, num_trials: int, *, mid_side: bool = False, carry=None,
+                blocks_before: int = 0):
+    """Encode a stream's next blocks from its samples, as the wire holds them.
+
+    ``pcm`` is (C, n) int16, the stream's next n samples a channel from a
+    block boundary on; samples past n read as zero, so only the last block
+    may be short. ``mid_side`` (two channels) encodes mid and side. ``carry``
+    is what the call before returned: None for the stream's first blocks,
+    with ``blocks_before`` 0. Returns (rows (B, geo.block_size) uint8, each
+    block's header bytes and data region; carry'): on a card one launch of
+    kernel 3's wire mode and one of kernel 4 for the carry (a
+    :class:`WireCarry`, the same object from call to call); on the CPU the
+    plain version, :func:`encode_wire_reference`.
+    """
+    bps = geo.bits_per_sample
+    _require(bps in (2, 3, 4), f"bits_per_sample {bps}")
+    _require(num_trials >= 0, f"num_trials {num_trials}")
+    _require(geo.num_samples_per_block > FILTER_ORDER, f"{geo.num_samples_per_block} samples a block")
+    _require(pcm.dim() == 2 and pcm.shape[0] == geo.num_channels and pcm.shape[1] >= 1,
+             f"pcm must be ({geo.num_channels}, n >= 1), got {tuple(pcm.shape)}")
+    _require(pcm.dtype == torch.int16, f"pcm must be int16, got {pcm.dtype}")
+    _require(not mid_side or geo.num_channels == 2, f"mid/side of {geo.num_channels} channel(s)")
+    _require(carry is not None or blocks_before == 0, "blocks before the first call need a carry")
+    kwargs = dict(mid_side=mid_side, carry=carry, blocks_before=int(blocks_before))
+    if pcm.device.type == "cpu":
+        return encode_wire_reference(pcm, geo, num_trials, **kwargs)
+    _require(pcm.device.type == "cuda", f"no kernel for device {pcm.device}")
+    _require(pcm.is_contiguous(), "pcm must be contiguous")
+    return _launch_wire(pcm, geo, num_trials, **kwargs)
+
+
+@functools.cache
+def _whole_valid(device: torch.device, lanes: int, nspb: int) -> torch.Tensor:
+    """Kernel 4's (L,) valid for the carry's pass: the whole block."""
+    return torch.full((lanes,), nspb, dtype=torch.int32, device=device)
+
+
+def _launch_wire(pcm, geo, num_trials, *, mid_side, carry, blocks_before):
+    """encode_wire on CUDA: kernel 3's wire mode, then kernel 4 from the last
+    block's header state, both on the carry's buffers."""
+    C, n = pcm.shape
+    L, nspb, bps = C, geo.num_samples_per_block, geo.bits_per_sample
+    B = num_blocks_for(n, nspb)
+    device = pcm.device
+    if carry is None:  # a zero state and no block before: the kernel takes nulls for them
+        carry = WireCarry(L, nspb, device)
+        turn, init = 0, (None,) * 4
+    else:
+        st = carry.end_state(carry.turn)
+        turn, init = carry.turn ^ 1, (carry.prev_block(), st.step_index, st.history, st.weight)
+    samples, seeded = carry.samples(turn, B), carry.header_state(turn)
+    rows = torch.empty((B, geo.block_size), dtype=torch.uint8, device=device)
+    with span("aad.launch.encode_stream"):
+        lib = _build.library()
+        err = lib.aad_encode_stream_wire(
+            pcm.data_ptr(), n, *(None if t is None else t.data_ptr() for t in init),
+            stepsize_table(device).data_ptr(), index_table(bps, device).data_ptr(), samples.data_ptr(),
+            rows.data_ptr(), seeded.step_index.data_ptr(), seeded.history.data_ptr(), seeded.weight.data_ptr(),
+            B, L, nspb, C, bps, geo.block_size, int(mid_side), num_trials, blocks_before,
+            *_build.launch_target(device),
+        )
+        _build.check(lib, STREAM_KERNEL, err)
+    launches[STREAM_KERNEL] += 1
+    count("k3_rows_written", B)
+    if mid_side:
+        count("k3_rows_ms", B)
+    encode_pass(samples[-1, FILTER_ORDER:], seeded, _whole_valid(device, L, nspb), bps,
+                out=(carry.end_state(turn), carry.sse))
+    carry.turn, carry.blocks = turn, B
+    return rows, carry
+

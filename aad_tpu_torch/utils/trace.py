@@ -30,8 +30,10 @@ with ``aad.``:
   byte queue and the block rows of a push), ``aad.push.buffer`` (a
   ``StreamingEncoder``'s host buffer: the push's samples joined to it,
   its whole blocks cut off), ``aad.stream_encode.blocks`` (the encode of
-  those blocks: padding, mid/side, the encode wrapper with, on a card,
-  kernel 3's launch and kernel 4's for the carry, the block bytes),
+  those blocks: on a card kernel 3's launch in its wire mode, which pads,
+  combines mid/side and writes the block bytes itself, and kernel 4's for
+  the carry; on the CPU the padding, mid/side, encode and block bytes as
+  torch ops),
   ``aad.frame.blocks`` (the
   block rows' view of the payload, ``Decoder._decode_prefix``; a
   ``decode_batch``'s per-stream rows), ``aad.decode.pcm`` (the decode of
@@ -59,6 +61,10 @@ with ``aad.``:
 * kernel 1's counters, on a card only (``ops.fused_decode.decode_rows``):
   ``k1_rows_parsed`` (blocks whose headers the kernel parsed itself) and
   ``k1_rows_ms`` (of them, those whose left/right it combined);
+* kernel 3's counters, on a card only (``ops.fused_encode.encode_wire``):
+  ``k3_rows_written`` (blocks whose whole wire bytes, header and data
+  region, the kernel wrote itself) and ``k3_rows_ms`` (of them, those whose
+  mid/side it combined);
 * kernel launches, on a card only: ``aad.launch.decode_lanes``,
   ``aad.launch.stepsize_probe``, ``aad.launch.encode_stream``,
   ``aad.launch.encode_pass``, ``aad.launch.lms_lanes``.

@@ -160,9 +160,13 @@ failure exits non-zero:
    ``aad-b4-s128-ms-stereo`` geometry (2 channels, 4 bits, 128-byte blocks
    of 96 samples, mid/side, 2 trials) fed 20-ms pushes (960 samples a
    channel, 10 blocks), three feeds in turn, each finished after its last
-   push, bit for bit against ``device="cpu"``; then one 10-s feed on the
-   card, its pushes timed by the host's clock (median and p95 a push) with
-   the launches of kernels 3 and 4 a push.
+   push, bit for bit against ``device="cpu"``; a 10-block push before the
+   wire mode (kernel 3's other mode with the host's framing around it) and
+   after (kernel 3's wire mode), bit for bit, with the device operations a
+   push, kernels 3 and 4's device time and a push's time by the host's
+   clock; then one 10-s feed on the card, its pushes timed by the host's
+   clock (median and p95 a push) with the launches of kernels 3 and 4 a
+   push.
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -252,8 +256,9 @@ DECODE_SYMBOL = "decode_lanes_kernelILi4ELb1ELi2ELb0E"  # aad_decode_lanes at 4 
 # kernel 1 on the bench stream's rows with the lane states given (PERF.md kernel table, row 1; H100 80GB HBM3, 700 W)
 K1_STATES_GIVEN_MS = 0.2114
 LMS_SYMBOL = "lms_lanes_kernel"
-SERIAL_SYMBOL = "encode_stream_kernelILi4ELb1E"  # aad_encode_stream's serial schedule, 4 bits, packed
-PAIRED_SYMBOL = "encode_stream_paired_kernelILi4ELb1ELb1E"  # its paired schedule, staged, packed (the sequential shape's)
+SERIAL_SYMBOL = "encode_stream_kernelILi4ELb1ELb0EE"  # aad_encode_stream's serial schedule, 4 bits, packed
+# its paired schedule, staged, packed (the sequential shape's); not the wire mode
+PAIRED_SYMBOL = "encode_stream_paired_kernelILi4ELb1ELb1ELb0EE"
 # Device time a call of the resident fused decode of the bench stream and of
 # the resident parallel encode of the 10-minute signal took when kernel 1
 # read the codes one a byte, unpacked by torch ops, and kernel 3 wrote them
@@ -2160,12 +2165,78 @@ def probes_phase(cuda, card, build_future, main_launches) -> list[dict]:
     return records
 
 
+def live_push_before_after(cuda, card, cfg) -> None:
+    """A 10-block push of the live cell, before the wire mode (kernel 3's
+    other mode, the host's padding, mid/side, relayouts and header bytes
+    around it, as ``StreamingEncoder`` pushed until then) and after
+    (``StreamingEncoder``: kernel 3's wire mode): the same bytes; the
+    device operations a push and kernels 3 and 4's device time under the
+    profiler, and a push's time by the host's clock without it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    import aad_tpu_torch as at
+    from aad_tpu_torch.ops import fused_encode as fe
+    from aad_tpu_torch.ops.encode import lr_to_ms
+
+    geo = cfg.geometry()
+    pushes = 400
+    feed = bench_pcm(LIVE_PUSH * pushes, seed=SEED + 13)
+
+    class Before:  # the push as it was: one launch of kernel 3's other mode, the carry by kernel 4
+        def __init__(self):
+            self.carry, self.done = None, 0
+
+        def push(self, x):
+            with torch.no_grad():
+                pcm = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                blocks, valid = fe._pad_to_blocks(pcm, geo, 0, x.shape[1] // geo.num_samples_per_block)
+                headers, data, self.carry = fe.encode_stream(
+                    lr_to_ms(blocks).to(torch.int16), valid, 4, 2, carry=self.carry, blocks_before=self.done,
+                    pack=geo)
+                self.done += blocks.shape[0]
+                return fe._block_bytes(headers, data, geo).reshape(-1).cpu().numpy().tobytes()
+
+    def run(enc, lo, hi):
+        return [enc.push(feed[:, k * LIVE_PUSH: (k + 1) * LIVE_PUSH]) for k in range(lo, hi)]
+
+    def on_card(prof):
+        return [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA and not e.name().startswith("aad.")]
+
+    out = {}
+    for label, enc in (("before", Before()), ("after", at.StreamingEncoder(cfg, device=cuda))):
+        got = run(enc, 0, 8)  # warm
+        torch.cuda.synchronize()
+        times = []
+        for k in range(8, pushes - 50):
+            t0 = time.perf_counter()
+            got += run(enc, k, k + 1)
+            times.append(time.perf_counter() - t0)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got += run(enc, pushes - 50, pushes)
+            torch.cuda.synchronize()
+        ops = on_card(prof)
+        k3 = sum(e.duration_ns() for e in ops if "encode_stream" in e.name()) / 50 / 1e3
+        k4 = sum(e.duration_ns() for e in ops if "encode_pass" in e.name()) / 50 / 1e3
+        out[label] = (got, len(ops) / 50, k3, k4, float(np.median(times)) * 1e3)
+    check(out["before"][0] == out["after"][0], "live sender: the wire mode's bytes != kernel 3's other mode's")
+    (_, ob, k3b, k4b, tb), (_, oa, k3a, k4a, ta) = out["before"], out["after"]
+    print(f"[live] a 10-block push, before / after the wire mode ({pushes} pushes, bit-exact): device operations a "
+          f"push {ob:.3f} / {oa:.3f}; kernel 3 {k3b:.1f} / {k3a:.1f} us, kernel 4 {k4b:.1f} / {k4a:.1f} us a push "
+          f"under the profiler; a push {tb:.4f} / {ta:.4f} ms median by the host's clock without it ({card})")
+
+
 def live_encode_phase(cuda, card) -> None:
     """Phase 18: a live stereo sender. ``StreamingEncoder`` at the live
     cell's configuration, 960-sample pushes of three feeds in turn, each
-    finished after its last push, against ``device="cpu"`` bit for bit; then
-    one feed of LIVE_SECONDS on the card, each push timed by the host's
-    clock, with the launches of kernels 3 and 4 a push."""
+    finished after its last push, against ``device="cpu"`` bit for bit; a
+    10-block push before and after the wire mode
+    (:func:`live_push_before_after`); then one feed of LIVE_SECONDS on the
+    card, each push timed by the host's clock, with the launches of kernels
+    3 and 4 a push."""
     import aad_tpu_torch as at
     from aad_tpu_torch.ops import encode_pass as ep, fused_encode as fe
 
@@ -2187,6 +2258,7 @@ def live_encode_phase(cuda, card) -> None:
     check(got == in_turns("cpu"), "live sender: StreamingEncoder on the card != device='cpu'")
     print(f"[live] aad-b4-s128-ms-stereo, 960-sample pushes of feeds of {LIVE_FEEDS} samples/ch in turn, each "
           f"finished after its last push: cuda == cpu, bit-exact")
+    live_push_before_after(cuda, card, cfg)
     feed = bench_pcm(RATE * LIVE_SECONDS, seed=SEED + 11)
     enc = at.StreamingEncoder(cfg, device=cuda)
     times, parts = [], []

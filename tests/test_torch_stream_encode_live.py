@@ -27,7 +27,7 @@ import aad_tpu
 import aad_tpu_torch
 from aad_tpu.codec.encoder import EncodeConfig as JaxEncodeConfig
 from aad_tpu_torch.utils import trace
-from test_torch_stream_encode_gpu import CFG, NSPB, PUSH, _pcm, _reference
+from test_torch_stream_encode_gpu import CFG, NSPB, PUSH, _pcm, _reference, expected_trace
 from test_torch_trace import parent_of, program_spans, recorded
 
 GEO = CFG.geometry()
@@ -106,40 +106,16 @@ def test_each_push_returns_its_whole_blocks(stream):
     assert len(outs[-1]) == (REF_GEO.wire_bytes(tail) if tail else 0)
 
 
-def _expected(n: int):
-    """The spans (name, parent's name) and counters of pushing n samples a
-    channel 960 at a time, then finishing."""
-    push, finish = "aad.stream_encode.push", "aad.stream_encode.finish"
-    spans, counts = [], {"stream_encode_blocks": _blocks(n), "h2d_bytes": 2 * 2 * n}
-    done = carried = idle = out = 0
-    for off in range(0, n, PUSH):
-        spans += [(push, None), ("aad.push.buffer", push)]
-        whole = min(off + PUSH, n) // NSPB
-        if whole == done:
-            idle += 1
-            continue
-        spans += [("aad.h2d", push), ("aad.stream_encode.blocks", push), ("aad.d2h", push)]
-        carried += 1
-        out += (whole - done) * GEO.block_size
-        done = whole
-    spans += [(finish, None), ("aad.push.buffer", finish)]
-    if n > done * NSPB:
-        spans += [("aad.h2d", finish), ("aad.stream_encode.blocks", finish), ("aad.d2h", finish)]
-        carried += 1
-        out += REF_GEO.wire_bytes(n - done * NSPB)
-    counts.update(stream_encode_carried=carried, stream_encode_idle_pushes=idle, d2h_bytes=out)
-    return spans, {k: v for k, v in counts.items() if v}
-
-
 def test_spans_nest_as_documented(stream, traced):
-    spans, _ = _expected(stream[1].shape[1])
+    spans, _ = expected_trace(stream[1].shape[1])
     assert traced[1] == spans
 
 
 def test_counters_count_what_the_pushes_did(stream, traced):
     outs, _, gained = traced
-    _, counts = _expected(stream[1].shape[1])
+    _, counts = expected_trace(stream[1].shape[1])
     assert gained == counts
+    assert not {"k3_rows_written", "k3_rows_ms"} & set(gained)  # kernel 3 counts them where it launches
     assert gained.get("d2h_bytes", 0) == sum(len(o) for o in outs)
 
 
