@@ -21,6 +21,9 @@ Public surface:
     Encoder.from_config(config, device, ...) -> reusable encoder;
                                          encode_payload_ondevice stays on device
     StreamingEncoder(config, device, total_samples) -> push PCM chunks, get bytes
+    StreamingEncoderBank(config, slots, device) -> many live feeds, a tick of pushes
+                                         at once: one upload, kernels 3 and 4 once
+                                         and one copy down a tick on a card
     EncodeConfig                      -> encoder parameters
     transcode(data, device=, engine=, bits_per_sample=, ...) -> .aad bytes
     encode_file(wav, aad, device=...) / decode_file(aad, wav, device=, engine=)
@@ -49,7 +52,7 @@ from .codec.batch import decode_batch
 from .codec.batch_encode import encode_batch
 from .codec.decoder import Decoder, decode
 from .codec.encoder import EncodeConfig, Encoder, encode
-from .codec.streaming import StreamingDecoder, StreamingEncoder
+from .codec.streaming import StreamingDecoder, StreamingEncoder, StreamingEncoderBank
 from .codec.transcode import transcode
 from .codec.result import (
     AadError,
@@ -108,6 +111,7 @@ __all__ = [
     "QualityStats",
     "StreamingDecoder",
     "StreamingEncoder",
+    "StreamingEncoderBank",
     "calculate_block_size",
     "compute_block_geometry",
     "decode",

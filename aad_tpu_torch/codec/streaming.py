@@ -10,7 +10,8 @@ trial search reading the previous block at :502-512) is explicit here:
                                         once with a declared total)
 
 Chunk boundaries are arbitrary; the bytes equal a one-shot encode of the
-concatenated input. Each push uploads its whole blocks' samples as they came
+concatenated input. ``StreamingEncoderBank`` holds many such feeds in
+slots and encodes a tick of all their pushes at once. Each push uploads its whole blocks' samples as they came
 and runs the whole-stream encode kernel's wire mode over them with the carry
 of the push before (``ops.fused_encode.encode_wire``, kernels
 ``aad_encode_stream`` and ``aad_encode_pass``): the kernel pads, combines
@@ -31,6 +32,7 @@ is not carried over (torch runs eagerly).
 from __future__ import annotations
 
 import collections
+import dataclasses
 
 import numpy as np
 import torch
@@ -38,8 +40,8 @@ import torch
 from ..constants import CH_PROCESS_MS, FILE_HEADER_SIZE
 from ..format.geometry import encoded_block_bytes, geometry_from_header, num_blocks_for
 from ..format.header import HeaderInfo, decode_header, encode_header, validate_header
-from ..ops.fused_encode import encode_wire
-from ..utils.trace import count, span
+from ..ops.fused_encode import BANK_FIELDS, CarryBank, encode_bank, encode_wire, write_feeds
+from ..utils.trace import count, recording, span
 from .. import native as native_engine
 from .decoder import Decoder, resolve_engine
 from .device import resolve_device
@@ -146,6 +148,184 @@ class StreamingEncoder:
             count("d2h_bytes", payload.nbytes)
             payload = payload.cpu()
         return payload.numpy().tobytes()
+
+
+class StreamingEncoderBank:
+    """Live encoders of ``slots`` feeds of one configuration, pushed a tick at a time.
+
+    Each slot holds one feed at a time: a :class:`StreamingEncoder`'s state
+    (its samples past the last whole block, its carry, its count) for each.
+    :meth:`push` takes a tick: every slot's next samples, and the slots whose
+    feed ends with them. A feed's bytes, tick after tick, equal those of a
+    :class:`StreamingEncoder` fed the same pushes, and so a one-shot
+    ``encode()`` of its samples. On a card a tick is one upload, one launch
+    of kernel 3's bank mode, one of kernel 4's and one copy down, whatever
+    the number of feeds (``ops.fused_encode.encode_bank``); the carries stay
+    on the card, one set of buffers for every slot (``CarryBank``), and the
+    host keeps only the remainders, in the first of two pinned uploads used
+    in turn: while the card encodes a tick from one, the remainders move
+    to the other. A caller may write a tick's samples straight into it
+    (:meth:`buffer`). ``device="cpu"`` runs the plain version.
+    On a card the configuration needs ``num_encode_trials`` of 1 or more.
+    """
+
+    def __init__(self, config: EncodeConfig, slots: int, device="cuda"):
+        config.validate()
+        if int(slots) < 1:
+            raise InvalidArgumentError(f"a bank needs a slot or more, got {slots}")
+        self.config = config
+        self.geometry = geo = config.geometry()
+        self.slots = int(slots)
+        self.device = resolve_device(device)
+        C, nspb = config.num_channels, geo.num_samples_per_block
+        self._rest_len = np.zeros(self.slots, dtype=np.int64)  # samples past the slot's last whole block
+        self._blocks = np.zeros(self.slots, dtype=np.int64)    # blocks of the slot's feed: 0, no carry
+        self._samples = np.zeros(self.slots, dtype=np.int64)
+        self._ended = np.full(self.slots, -1, dtype=np.int64)  # samples of the slot's last finished feed
+        self._carry = CarryBank(self.slots, C, nspb, self.device)
+        self._wire = np.array([encoded_block_bytes(geo, v) for v in range(nspb + 1)], dtype=np.int64)
+        self._head = config.header_for(0)
+        # two uploads, used in turn: the table of feeds (S rows of BANK_FIELDS
+        # int32), then (S, C, nspb + n) samples a slot, its remainder
+        # right-aligned in the first nspb, the tick's samples after; by n.
+        # While the card encodes a tick from one, the remainders move to the other.
+        self._uploads = ()
+        self._width = 0
+        self._given = None  # the view :meth:`buffer` gave for the next push
+        self._down = None  # on a card, the pinned download of a tick's bytes; by n
+
+    def buffer(self, n: int) -> np.ndarray:
+        """The (S, C, n) int16 array where the next push's samples go. A
+        caller that writes a tick's samples into it and pushes it saves the
+        push a copy; any other array is copied in."""
+        self._given = self._stage_view(int(n))[:, :, self.geometry.num_samples_per_block:]
+        return self._given
+
+    def push(self, pcm, lengths, finish=None) -> tuple[np.ndarray, np.ndarray]:
+        """Feed a tick: ``pcm`` (S, C, n) int16-valued samples, slot s's first
+        ``lengths[s]`` (0 to n) its next samples; ``finish`` (S,) bools, the
+        slots whose feed ends after them (their last, maybe short, block is
+        encoded; :meth:`header` then gives the feed's file header, and the
+        slot's next samples start a new feed). Returns (data, offsets): slot
+        s's payload bytes of the tick are ``data[offsets[s]:offsets[s + 1]]``."""
+        S, C = self.slots, self.config.num_channels
+        given, self._given = self._given, None
+        if pcm is not given:
+            pcm = np.asarray(pcm)
+        if pcm.ndim != 3 or pcm.shape[:2] != (S, C):
+            raise InvalidArgumentError(f"a tick must be ({S}, {C}, n), got {pcm.shape}")
+        lengths = np.asarray(lengths, dtype=np.int64)
+        finish = np.zeros(S, dtype=bool) if finish is None else np.asarray(finish, dtype=bool)
+        if lengths.shape != (S,) or finish.shape != (S,):
+            raise InvalidArgumentError(f"lengths and finish must be ({S},)")
+        if lengths.size and (lengths.min() < 0 or lengths.max() > pcm.shape[2]):
+            raise InvalidArgumentError(f"lengths must lie in [0, {pcm.shape[2]}]")
+        geo, nspb = self.geometry, self.geometry.num_samples_per_block
+        with span("aad.stream_encode.bank"):
+            with span("aad.bank.stage"):
+                samples = self._stage_view(pcm.shape[2])
+                if pcm is not given:
+                    as_int16(pcm, out=samples[:, :, nspb:])
+                upload_t, upload = self._uploads[0]
+                total = self._rest_len + lengths
+                whole = total // nspb
+                rest = total - whole * nspb
+                cut = finish & (rest > 0)  # a finished feed's short last block
+                blocks = whole + cut
+                coded = np.where(finish, total, whole * nspb)
+                size = blocks * geo.block_size - np.where(cut, geo.block_size - self._wire[rest], 0)
+                offsets = np.zeros(S + 1, dtype=np.int64)
+                np.cumsum(size, out=offsets[1:])
+                at = np.flatnonzero(blocks)
+                F = len(at)
+                write_feeds(upload[: S * BANK_FIELDS * 2].view(np.int32).reshape(S, BANK_FIELDS), at, coded[at],
+                            at * (C * self._width) + nspb - self._rest_len[at], offsets[at], self._blocks[at] > 0)
+                if recording():
+                    pushed = (lengths > 0) | finish
+                    count("bank_feeds", int(pushed.sum()))
+                    count("bank_blocks", int(blocks.sum()))
+                    count("bank_started", int((self._blocks[at] == 0).sum()))
+                    count("bank_finished", int(finish.sum()))
+                    count("bank_idle_feeds", int((pushed & (blocks == 0)).sum()))
+            if F:
+                with span("aad.h2d"):
+                    count("h2d_bytes", upload.nbytes)
+                    up = upload_t.to(self.device, non_blocking=True)
+                with span("aad.bank.blocks"):
+                    rows = encode_bank(
+                        up[S * BANK_FIELDS * 2:], up[: F * BANK_FIELDS * 2].view(torch.int32).view(F, BANK_FIELDS),
+                        geo, self.config.num_encode_trials, mid_side=self.config.ch_process_method == CH_PROCESS_MS,
+                        carry=self._carry, channel_stride=self._width, num_blocks=int(blocks.max()),
+                        total_blocks=int(blocks.sum()), total_bytes=int(offsets[-1]))
+            with span("aad.bank.split"):  # while the card encodes: the remainders into the other upload, the state
+                self._carry_rest(samples, lengths)
+                self._rest_len = np.where(finish, 0, total - coded)
+                self._blocks = np.where(finish, 0, self._blocks + blocks)
+                done = self._samples + coded
+                self._ended = np.where(finish, done, self._ended)
+                self._samples = np.where(finish, 0, done)
+            data = np.empty(0, dtype=np.uint8)
+            if F:
+                with span("aad.d2h"):
+                    count("d2h_bytes", rows.nbytes)
+                    data = self._download(rows)
+            return data, offsets
+
+    def _download(self, rows: torch.Tensor) -> np.ndarray:
+        """The tick's bytes as a host array of the caller's own: on a card
+        through the bank's pinned download (a copy down with no staging, a
+        wait for it, one copy out)."""
+        if rows.device.type == "cpu":
+            return rows.numpy()
+        down = self._down[: rows.numel()]
+        down.copy_(rows, non_blocking=True)
+        torch.cuda.current_stream(rows.device).synchronize()
+        return down.numpy().copy()
+
+    def _stage_view(self, n: int) -> np.ndarray:
+        """The next push's (S, C, nspb + n) samples of its upload, the
+        remainders in place; two new uploads where n changed."""
+        S, C = self.slots, self.config.num_channels
+        nspb = self.geometry.num_samples_per_block
+        width = nspb + n
+        table = S * BANK_FIELDS * 2
+        if width != self._width:
+            if S * C * width >= 2**31:
+                raise InvalidArgumentError(f"a tick of {S} x {C} x {n} samples is too large for one upload")
+            pin = self.device.type == "cuda"
+            uploads = tuple((t, t.numpy()) for t in (torch.empty((table + S * C * width,), dtype=torch.int16,
+                                                                   pin_memory=pin) for _ in range(2)))
+            if pin:  # the most bytes a tick can write: each slot's remainder and n samples in whole blocks
+                most = S * -(-(nspb - 1 + n) // nspb) * self.geometry.block_size
+                self._down = torch.empty((most,), dtype=torch.uint8, pin_memory=True)
+            if self._uploads:
+                samples = uploads[0][1][table:].reshape(S, C, width)
+                samples[:, :, :nspb] = self._uploads[0][1][table:].reshape(S, C, self._width)[:, :, :nspb]
+            self._uploads, self._width = uploads, width
+        return self._uploads[0][1][table:].reshape(S, C, width)
+
+    def _carry_rest(self, samples: np.ndarray, lengths: np.ndarray) -> None:
+        """Each slot's samples past its whole blocks, right-aligned in the
+        first nspb of the other upload (the last nspb of its joined
+        samples), which the next push then takes. The other upload's copy
+        up ended with the push before: that push waited for its copy down."""
+        S, C, width = samples.shape
+        nspb = self.geometry.num_samples_per_block
+        n = width - nspb
+        self._uploads = self._uploads[::-1]
+        dest = self._uploads[0][1][S * BANK_FIELDS * 2:].reshape(S, C, width)
+        dest[:, :, :nspb] = samples[:, :, n:]  # slots that took n samples
+        short = np.flatnonzero(lengths < n)
+        if len(short):
+            dest[short, :, :nspb] = np.lib.stride_tricks.sliding_window_view(
+                samples[short], nspb, axis=2)[np.arange(len(short)), :, lengths[short]]
+
+    def header(self, slot: int) -> bytes:
+        """The 31-byte file header of the slot's last finished feed."""
+        n = int(self._ended[slot])
+        if n < 0:
+            raise InvalidArgumentError(f"slot {slot} has no finished feed")
+        return encode_header(dataclasses.replace(self._head, num_samples=n))
 
 
 class _ByteFIFO:

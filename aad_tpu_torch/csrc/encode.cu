@@ -129,6 +129,22 @@
 // template parameter of both schedules; the other instances compile as
 // before.
 //
+// The bank mode (aad_encode_stream_bank, StreamingEncoderBank's one launch a
+// tick; struct Bank): the wire mode over the feeds of one tick of a bank of
+// S slots. A feed is a row of C lanes with its own samples (a count and an
+// offset in the tick's upload), its own carry or none (its slot's state and
+// last block in the bank's buffers, read by slot index), its own block count
+// and its own output rows; a CTA runs to the most blocks of the launch, and
+// a lane past its feed's blocks passes empty and writes nothing. Each CTA
+// first stages its feeds' samples, a carried feed's previous block from the
+// bank and then its blocks, and writes each feed's last block back to its
+// slot. The tick's output is its feeds' payloads end to end: each feed's
+// blocks from its first byte on, its last block cut to the units that hold
+// its valid samples, as the wire holds a stream's end. Kernel 4's bank
+// instance (bank_encode_pass_kernel) then rebuilds every feed's end state
+// into its slot. Only the paired schedule has a bank instance; the other
+// instances compile as before.
+//
 // The entry points have a plain C interface (bound with ctypes), launch on
 // the stream they are given, allocate nothing and return the cudaError_t of
 // the launch.
@@ -553,6 +569,147 @@ struct Wire {
   }
 };
 
+// The bank mode's tick (see the top). A feed is a row of C lanes of the
+// launch, lane l of feed l / C; its row of the tick's table holds its slot,
+// its samples a channel n, where its first sample lies in pcm (channel c at
+// pcm[first + c * channel_stride + t] for t < n), its first byte in the
+// output and whether it has a carry. Its blocks' samples lie in
+// Wire::ms from block 1 on; block 0 there is a carried feed's previous
+// block. The slot's carry is lane slot * C + l % C of `prev` and of the end
+// state, which kernel 4 writes and the next tick's kernel 3 reads.
+constexpr int kBankFields = 5;  // slot, n, first, first byte, carried
+
+struct Feed {
+  int32_t n;
+  int32_t byte0;
+  int32_t blocks;
+  bool carried;
+  int64_t slot_lane;  // the feed's lane in the bank's buffers
+
+  // block b's valid samples; 0 past the feed's blocks
+  __device__ __forceinline__ int32_t valid(int b, int nspb) const {
+    return b < blocks ? min(n - b * nspb, nspb) : 0;
+  }
+
+  // whether block b has a block before it in the feed
+  __device__ __forceinline__ bool has_prev(int b) const { return b < blocks && (b > 0 || carried); }
+};
+
+struct Bank {
+  const int32_t* feeds;     // (F, kBankFields)
+  const int16_t* pcm;       // the tick's samples
+  int16_t* prev;            // (nspb, slot_lanes): each slot's last block, time-major
+  int32_t* end_index;       // (slot_lanes,): each slot's state after its last block
+  int32_t* end_history;     // (slot_lanes, 4)
+  int32_t* end_weight;      // (slot_lanes, 4)
+  long long channel_stride;
+  long long slot_lanes;     // S * C
+
+  __device__ __forceinline__ Feed feed(int64_t lane, int C, int nspb) const {
+    const int32_t* f = feeds + (C == 2 ? lane >> 1 : lane) * kBankFields;
+    const int32_t n = f[1];
+    return Feed{n, f[3], (n + nspb - 1) / nspb, f[4] != 0, static_cast<int64_t>(f[0]) * C + (C == 2 ? lane & 1 : 0)};
+  }
+
+  // The samples of lanes [lane0, lane0 + lanes) (whole rows) into w.ms, all
+  // threads of the CTA taking part: a carried feed's previous block from
+  // prev into block 0, a barrier, then each feed's blocks from pcm into
+  // blocks 1 on, zero past n and mid/side combined as Wire::stage does, its
+  // last block also into its slot of prev. A barrier must follow.
+  __device__ __forceinline__ void stage(const Wire& w, int64_t lane0, int lanes, int nspb, int64_t L,
+                                        int C) const {
+    for (int k = threadIdx.x; k < lanes * nspb; k += blockDim.x) {
+      const int64_t lane = lane0 + k % lanes;
+      const int pos = k / lanes;
+      const Feed f = feed(lane, C, nspb);
+      if (f.carried) w.ms[pos * L + lane] = prev[pos * slot_lanes + f.slot_lane];
+    }
+    __syncthreads();
+    constexpr int kBatch = 8;  // positions a thread loads before it stores any
+    for (int64_t lane = lane0; lane < lane0 + lanes; lane += C) {
+      const Feed f = feed(lane, C, nspb);
+      const int16_t* src = pcm + feeds[(C == 2 ? lane >> 1 : lane) * kBankFields + 2];
+      const int positions = f.blocks * nspb;
+      const int last = positions - nspb;
+      for (int first = threadIdx.x; first < positions; first += kBatch * blockDim.x) {
+        int32_t x0[kBatch], x1[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int pos = first + u * blockDim.x;
+          x0[u] = pos < f.n ? src[pos] : 0;
+          x1[u] = C == 2 && pos < f.n ? src[channel_stride + pos] : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int pos = first + u * blockDim.x;
+          if (pos >= positions) break;
+          int32_t a = x0[u], b = x1[u];
+          if (w.mid_side) {
+            a = clip16(asr(x0[u] + x1[u], 1));
+            b = clip16(asr(x0[u] - x1[u], 1));
+          }
+          int16_t* dst = w.ms + static_cast<int64_t>(nspb + pos) * L + lane;
+          dst[0] = static_cast<int16_t>(a);
+          if (C == 2) dst[1] = static_cast<int16_t>(b);
+          if (pos >= last) {
+            int16_t* keep = prev + static_cast<int64_t>(pos - last) * slot_lanes + f.slot_lane;
+            keep[0] = static_cast<int16_t>(a);
+            if (C == 2) keep[1] = static_cast<int16_t>(b);
+          }
+        }
+      }
+    }
+  }
+
+  // Block b's header of `lane` and, its feed's last block's, its state, as
+  // Wire::put_header writes them, in the feed's block b. (A shared writer
+  // changed the wire mode's compiled code: kept apart.)
+  __device__ __forceinline__ void put_header(const Wire& w, const Feed& f, int b, int64_t lane, int C,
+                                             const State& s, int32_t shift) const {
+    uint8_t* p = w.rows + f.byte0 + static_cast<int64_t>(b) * w.block_bytes +
+                 (C == 2 ? static_cast<int>(lane & 1) : 0) * kChannelHeaderBytes;
+    const int32_t u16[9] = {(s.idx << kTablesDigits) | (shift & 0xF), asr(s.w0, shift), s.h0, asr(s.w1, shift), s.h1,
+                            asr(s.w2, shift), s.h2, asr(s.w3, shift), s.h3};
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      p[2 * k] = static_cast<uint8_t>((u16[k] >> 8) & 0xFF);
+      p[2 * k + 1] = static_cast<uint8_t>(u16[k] & 0xFF);
+    }
+    if (b == f.blocks - 1) {
+      w.seed_index[lane] = s.idx;
+      int32_t* h = w.seed_history + 4 * lane;
+      int32_t* wt = w.seed_weight + 4 * lane;
+      h[0] = s.h0;
+      h[1] = s.h1;
+      h[2] = s.h2;
+      h[3] = s.h3;
+      wt[0] = s.w0;
+      wt[1] = s.w1;
+      wt[2] = s.w2;
+      wt[3] = s.w3;
+    }
+  }
+
+  // The data regions of the CTA's rows of block b (lanes [lane0, lane0 +
+  // lanes), row_bytes a row in `codes`, units of unit_bytes holding
+  // unit_codes codes a channel) after their headers, by the `active` threads
+  // of the CTA: a feed's short last block up to the unit of its last valid
+  // sample (format/geometry.py::encoded_block_bytes); a row whose feed has
+  // no block b is skipped.
+  __device__ __forceinline__ void put_rows(const Wire& w, int b, int64_t lane0, int lanes, int C, int nspb,
+                                           const uint8_t* codes, int64_t row_bytes, int unit_bytes, int unit_codes,
+                                           int active) const {
+    for (int r = 0; r < lanes / C; ++r) {
+      const Feed f = feed(lane0 + r * C, C, nspb);
+      if (b >= f.blocks) continue;
+      uint8_t* const dst = w.rows + f.byte0 + static_cast<int64_t>(b) * w.block_bytes + C * kChannelHeaderBytes;
+      const int units = (max(f.valid(b, nspb) - kFilterOrder, 0) + unit_codes - 1) / unit_codes;
+      const int64_t bytes = min(row_bytes, static_cast<int64_t>(units) * unit_bytes);
+      for (int k = threadIdx.x; k < bytes; k += active) dst[k] = codes[r * row_bytes + k];
+    }
+  }
+};
+
 // The serial schedule (see the top); kWire, the wire mode (struct Wire).
 template <int BPS, bool kPacked, bool kWire>
 __global__ void __launch_bounds__(kEncodeThreads)
@@ -703,8 +860,9 @@ __device__ __forceinline__ void stage_column(int16_t* tile, const int16_t* __res
 // the passes read in place of device memory; then, packed, two copies of
 // the CTA's rows of the block's data regions, (lanes a CTA / C, row_bytes)
 // each: the adopted emits' and the speculative one's; unpacked, the
-// speculative codes, (T, lanes a CTA). kWire: the wire mode (struct Wire).
-template <int BPS, bool kStaged, bool kPacked, bool kWire>
+// speculative codes, (T, lanes a CTA). kWire: the wire mode (struct Wire);
+// kBank, with kWire, the bank mode (struct Bank).
+template <int BPS, bool kStaged, bool kPacked, bool kWire, bool kBank>
 __global__ void __launch_bounds__(2 * kPairLanes)
     encode_stream_paired_kernel(const int16_t* __restrict__ samples,    // (B, nspb, L) time-major
                                 const int16_t* __restrict__ prev0,      // (nspb, L)
@@ -718,13 +876,18 @@ __global__ void __launch_bounds__(2 * kPairLanes)
                                 int32_t* __restrict__ headers,          // (B, 10, L)
                                 int32_t* __restrict__ states,           // (B, 9, L), or null
                                 int num_blocks, int num_lanes, int nspb, int num_channels, int num_trials,
-                                int blocks_before, const Wire wire) {
+                                int blocks_before, const Wire wire, const Bank bank) {
   static_assert(!kWire || kPacked, "the wire mode writes the data regions packed");
+  static_assert(!kBank || kWire, "the bank mode is a wire mode");
   using Unit = CodeUnit<BPS, kPacked>;
   extern __shared__ uint8_t s_dyn[];
   __shared__ int32_t s_step[kStepTableSize];
   __shared__ uint8_t s_sink[2 * kPairLanes];  // the codes of a pass that keeps none
-  if constexpr (kWire) {  // stage_tables' barrier orders it before every pass
+  if constexpr (kBank) {  // stage_tables' barrier orders it before every pass
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 2);
+    bank.stage(wire, first, static_cast<int>(min(int64_t{blockDim.x / 2}, num_lanes - first)), nspb, num_lanes,
+               num_channels);
+  } else if constexpr (kWire) {  // stage_tables' barrier orders it before every pass
     const int64_t first = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 2);
     wire.stage(first, static_cast<int>(min(int64_t{blockDim.x / 2}, num_lanes - first)), num_blocks, nspb,
                num_lanes, num_channels);
@@ -764,11 +927,19 @@ __global__ void __launch_bounds__(2 * kPairLanes)
   const int64_t xs = kStaged ? per_cta : L;  // the samples' stride
   // the wire mode's first push has no carry: a zero state, and no block before block 0
   State st = kWire && step_index == nullptr ? State{} : load_state(step_index, history, weight, lane);
+  Feed feed{};
+  if constexpr (kBank) {  // the lane's feed, and its slot's end state where it has a carry
+    feed = bank.feed(lane, num_channels, nspb);
+    if (feed.carried) st = load_state(bank.end_index, bank.end_history, bank.end_weight, feed.slot_lane);
+  }
 
   for (int b = 0; b < num_blocks; ++b) {
     const int16_t* cur = samples + static_cast<int64_t>(b) * nspb * L + lane;
     const int16_t* prev = (b == 0 ? prev0 : samples + static_cast<int64_t>(b - 1) * nspb * L) + lane;
-    if constexpr (kWire) {
+    if constexpr (kBank) {  // block b at ms block b + 1, after the carry's
+      cur = wire.ms + static_cast<int64_t>(b + 1) * nspb * L + lane;
+      prev = wire.ms + static_cast<int64_t>(b) * nspb * L + lane;
+    } else if constexpr (kWire) {
       cur = wire.ms + static_cast<int64_t>(b) * nspb * L + lane;
       prev = (b == 0 ? prev0 : wire.ms + static_cast<int64_t>(b - 1) * nspb * L) + lane;
     }
@@ -776,17 +947,22 @@ __global__ void __launch_bounds__(2 * kPairLanes)
       int16_t* const cur_tile = s_tiles + (b & 1) * tile;
       int16_t* const prev_tile = s_tiles + ((b + 1) & 1) * tile;
       __syncwarp(mask);  // every pass over block b - 1 (and so over tile b % 2) is done
-      if (b == 0 && (!kWire || prev0 != nullptr)) stage_column(prev_tile, prev, L, nspb, per_cta, side);
+      if (b == 0 && (kBank ? feed.carried : !kWire || prev0 != nullptr)) {
+        stage_column(prev_tile, prev, L, nspb, per_cta, side);
+      }
       stage_column(cur_tile, cur, L, nspb, per_cta, side);
       __syncwarp(mask);
       cur = cur_tile;
       prev = prev_tile;
     }
-    const int32_t v = kWire ? wire.valid(b, nspb) : valid[static_cast<int64_t>(b) * L + lane];
+    const int32_t v =
+        kBank ? feed.valid(b, nspb) : kWire ? wire.valid(b, nspb) : valid[static_cast<int64_t>(b) * L + lane];
     // fewer than 4 valid samples: no measure runs, the error is 0 and no
     // candidate is adopted (src/aad_encoder.c:443-455)
     const int n_measure = v >= kFilterOrder ? clip(v - kFilterOrder, 0, T) : -1;
-    const bool has_prev = b + blocks_before >= 1;  // warm-ups from the stream's second block on
+    // warm-ups from the stream's second block on
+    const bool has_prev = kBank ? feed.has_prev(b) : b + blocks_before >= 1;
+    const bool live = !kBank || b < feed.blocks;  // the bank mode: past its feed's blocks a lane writes nothing
     uint8_t* const out = kPacked ? kept_codes : codes + static_cast<int64_t>(b) * T * L + lane;
     const int64_t out_stride = kPacked ? unit_bytes : L;
     int32_t* const hdr = headers + static_cast<int64_t>(b) * kHeaderFields * L + lane;
@@ -821,10 +997,12 @@ __global__ void __launch_bounds__(2 * kPairLanes)
       } else {  // an emit: from the baseline (s = 1) or from the latest candidate
         int32_t shift;
         entry = header_state(s == 1 ? st : cand, cur, xs, shift);
-        if (s == 1 || (chain_warms && better)) {  // adopted: codes and header in place
+        if ((s == 1 && live) || (chain_warms && better)) {  // adopted: codes and header in place
           n = T;
           to = UnitCodes<Unit>{out, out_stride, 1, 0};
-          if constexpr (kWire) {
+          if constexpr (kBank) {
+            bank.put_header(wire, feed, b, lane, num_channels, entry, shift);
+          } else if constexpr (kWire) {
             wire.put_header(b, lane, num_channels, b == num_blocks - 1, entry, shift);
           } else {
             store_header(hdr, L, entry, shift);
@@ -858,14 +1036,21 @@ __global__ void __launch_bounds__(2 * kPairLanes)
 #pragma unroll
         for (int i = 0; i < Unit::kBytes; ++i) out[u * out_stride + i] = spec_codes[u * spec_stride + i];
       }
-      if constexpr (kWire) {
+      if constexpr (kBank) {
+        bank.put_header(wire, feed, b, lane, num_channels, spec_entry, spec_shift);
+      } else if constexpr (kWire) {
         wire.put_header(b, lane, num_channels, b == num_blocks - 1, spec_entry, spec_shift);
       } else {
         store_header(hdr, L, spec_entry, spec_shift);
       }
       kept = spec_end;
     }
-    if constexpr (kWire) {
+    if constexpr (kBank) {  // each live row's data region after its header
+      __syncwarp(mask);
+      bank.put_rows(wire, b, lane0, static_cast<int>(min(int64_t{per_cta}, L - lane0)), num_channels, nspb, s_codes,
+                    row_bytes, unit_bytes, Unit::kCodes, __popc(mask));
+      __syncwarp(mask);  // the copies are free again
+    } else if constexpr (kWire) {
       // the data regions of the CTA's rows of block b, each after its
       // row's header, by its active threads (a prefix of the warp)
       __syncwarp(mask);
@@ -936,6 +1121,43 @@ __global__ void __launch_bounds__(kEncodeThreads)
   sse_out[lane] = sse;
 }
 
+// Kernel 4's bank instance (see the top): lane l of the tick's feeds, from
+// the header state kernel 3 left for its feed's last block (seed_*, (L, ...)),
+// one measure pass over that block (ms, time-major, as kernel 3 staged it)
+// to the state after it, written to the lane's slot of the bank's end state.
+template <int BPS>
+__global__ void __launch_bounds__(kEncodeThreads)
+    bank_encode_pass_kernel(const int16_t* __restrict__ ms,          // (blocks + 1, nspb, L)
+                            const int32_t* __restrict__ seed_index,  // (L,)
+                            const int32_t* __restrict__ seed_history,// (L, 4)
+                            const int32_t* __restrict__ seed_weight, // (L, 4)
+                            const int32_t* __restrict__ step_table,  // (256,)
+                            const int32_t* __restrict__ index_table, // (2**BPS,)
+                            const Bank bank, int num_lanes, int nspb, int num_channels) {
+  __shared__ int32_t s_step[kStepTableSize];
+  const Tables<BPS> tb = stage_tables<BPS>(s_step, step_table, index_table);
+
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= num_lanes) return;
+  const int64_t L = num_lanes;
+  const Feed f = bank.feed(lane, num_channels, nspb);
+  long long sse;
+  const State st = measure<BPS>(load_state(seed_index, seed_history, seed_weight, lane),
+                                ms + (static_cast<int64_t>(f.blocks) * nspb + kFilterOrder) * L + lane, L,
+                                nspb - kFilterOrder, sse, tb);
+  int32_t* h = bank.end_history + 4 * f.slot_lane;
+  int32_t* w = bank.end_weight + 4 * f.slot_lane;
+  h[0] = st.h0;
+  h[1] = st.h1;
+  h[2] = st.h2;
+  h[3] = st.h3;
+  w[0] = st.w0;
+  w[1] = st.w1;
+  w[2] = st.w2;
+  w[3] = st.w3;
+  bank.end_index[f.slot_lane] = st.idx;
+}
+
 // The dynamic shared memory a lane of the paired schedule takes: packed,
 // two copies of its share of a block's data regions; unpacked, its
 // speculative codes (T bytes); and, staged, its two sample tiles (4 nspb
@@ -971,13 +1193,14 @@ inline Schedule schedule(int nspb, int bits_per_sample, bool packed, int num_tri
   return Schedule{per_cta, staged, static_cast<size_t>(per_cta * lane_bytes(staged))};
 }
 
-// One launch of kernel 3 on stream s in schedule sc.
-template <int BPS, bool kPacked, bool kWire>
+// One launch of kernel 3 on stream s in schedule sc; the bank mode has the
+// paired schedule only.
+template <int BPS, bool kPacked, bool kWire, bool kBank = false>
 cudaError_t launch_stream(const Schedule& sc, cudaStream_t s, const void* samples, const void* prev0,
                           const void* valid, const void* step_index, const void* history, const void* weight,
                           const void* step_table, const void* index_table, void* codes, void* headers, void* states,
                           int num_blocks, int num_lanes, int nspb, int num_channels, int num_trials,
-                          int warm_on_prev, int blocks_before, const Wire& wire) {
+                          int warm_on_prev, int blocks_before, const Wire& wire, const Bank& bank = Bank{}) {
   const auto* x = static_cast<const int16_t*>(samples);
   const auto* p0 = static_cast<const int16_t*>(prev0);
   const auto* va = static_cast<const int32_t*>(valid);
@@ -992,14 +1215,16 @@ cudaError_t launch_stream(const Schedule& sc, cudaStream_t s, const void* sample
   if (sc.per_cta > 0) {
     const dim3 grid((num_lanes + sc.per_cta - 1) / sc.per_cta), block(2 * sc.per_cta);
     if (sc.staged) {
-      encode_stream_paired_kernel<BPS, true, kPacked, kWire><<<grid, block, sc.smem, s>>>(
+      encode_stream_paired_kernel<BPS, true, kPacked, kWire, kBank><<<grid, block, sc.smem, s>>>(
           x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
-          blocks_before, wire);
+          blocks_before, wire, bank);
     } else {
-      encode_stream_paired_kernel<BPS, false, kPacked, kWire><<<grid, block, sc.smem, s>>>(
+      encode_stream_paired_kernel<BPS, false, kPacked, kWire, kBank><<<grid, block, sc.smem, s>>>(
           x, p0, va, si, hi, we, st, it, co, hd, bs, num_blocks, num_lanes, nspb, num_channels, num_trials,
-          blocks_before, wire);
+          blocks_before, wire, bank);
     }
+  } else if constexpr (kBank) {
+    return cudaErrorInvalidValue;
   } else {
     const dim3 grid((num_lanes + kEncodeThreads - 1) / kEncodeThreads);
     encode_stream_kernel<BPS, kPacked, kWire><<<grid, dim3(kEncodeThreads), 0, s>>>(
@@ -1067,6 +1292,66 @@ int aad_encode_stream_wire(const void* pcm, long long n, const void* prev0, cons
         sc, static_cast<cudaStream_t>(stream), nullptr, prev0, nullptr, step_index, history, weight, step_table,
         index_table, nullptr, nullptr, nullptr, num_blocks, num_lanes, nspb, num_channels, num_trials, 1,
         blocks_before, wire);
+  }));
+}
+
+// Kernel 3's bank mode (aad::Bank): feeds (F, kBankFields) int32 and the
+// tick's pcm in; the bank's prev (nspb, slot_lanes) int16 and end state
+// (end_index (slot_lanes,), end_history and end_weight (slot_lanes, 4) int32)
+// read for carried feeds, prev rewritten for every feed; ms (num_blocks + 1,
+// nspb, L) int16, rows (the feeds' payloads end to end) uint8 and the feeds'
+// last blocks' header states (seed_*, (L, ...)) out. num_blocks is the most
+// blocks of a feed; L = F * C. Needs the paired schedule (num_trials > 0
+// and a lane that fits a paired CTA): else cudaErrorInvalidValue.
+int aad_encode_stream_bank(const void* feeds, const void* pcm, long long channel_stride, void* prev,
+                           void* end_index, void* end_history, void* end_weight, long long slot_lanes,
+                           const void* step_table, const void* index_table, void* ms, void* rows, void* seed_index,
+                           void* seed_history, void* seed_weight, int num_blocks, int num_lanes, int nspb,
+                           int num_channels, int bits_per_sample, int block_bytes, int mid_side, int num_trials,
+                           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_channels < 1 || num_channels > 2 || num_lanes % num_channels != 0 || (mid_side && num_channels != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const aad::Schedule sc = aad::schedule(nspb, bits_per_sample, true, num_trials, true, num_lanes, num_channels);
+  const aad::Wire wire{nullptr, static_cast<int16_t*>(ms), static_cast<uint8_t*>(rows),
+                       static_cast<int32_t*>(seed_index), static_cast<int32_t*>(seed_history),
+                       static_cast<int32_t*>(seed_weight), 0, 0, block_bytes, mid_side};
+  const aad::Bank bank{static_cast<const int32_t*>(feeds), static_cast<const int16_t*>(pcm),
+                       static_cast<int16_t*>(prev), static_cast<int32_t*>(end_index),
+                       static_cast<int32_t*>(end_history), static_cast<int32_t*>(end_weight), channel_stride,
+                       slot_lanes};
+  return static_cast<int>(aad::dispatch_bps(bits_per_sample, [&](auto bps) {
+    return aad::launch_stream<decltype(bps)::value, true, true, true>(
+        sc, static_cast<cudaStream_t>(stream), nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, step_table,
+        index_table, nullptr, nullptr, nullptr, num_blocks, num_lanes, nspb, num_channels, num_trials, 1, 0, wire,
+        bank);
+  }));
+}
+
+// Kernel 4's bank instance: the feeds' end states from seed_* and ms, as
+// aad_encode_stream_bank left them, into the bank's end state by slot.
+int aad_encode_pass_bank(const void* feeds, const void* ms, const void* seed_index, const void* seed_history,
+                         const void* seed_weight, const void* step_table, const void* index_table, void* end_index,
+                         void* end_history, void* end_weight, int num_lanes, int nspb, int num_channels,
+                         int bits_per_sample, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_channels < 1 || num_channels > 2 || num_lanes % num_channels != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const aad::Bank bank{static_cast<const int32_t*>(feeds), nullptr, nullptr, static_cast<int32_t*>(end_index),
+                       static_cast<int32_t*>(end_history), static_cast<int32_t*>(end_weight), 0, 0};
+  const dim3 grid((num_lanes + aad::kEncodeThreads - 1) / aad::kEncodeThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(aad::dispatch_bps(bits_per_sample, [&](auto bps) {
+    aad::bank_encode_pass_kernel<decltype(bps)::value><<<grid, dim3(aad::kEncodeThreads), 0, s>>>(
+        static_cast<const int16_t*>(ms), static_cast<const int32_t*>(seed_index),
+        static_cast<const int32_t*>(seed_history), static_cast<const int32_t*>(seed_weight),
+        static_cast<const int32_t*>(step_table), static_cast<const int32_t*>(index_table), bank, num_lanes, nspb,
+        num_channels);
+    return cudaGetLastError();
   }));
 }
 

@@ -62,6 +62,16 @@ _SIGNATURES = {
     # codes, step_index_out, history_out, weight_out, sse_out, num_lanes,
     # num_codes, bits_per_sample, device, stream
     "aad_encode_pass": (_P,) * 12 + (_I,) * 4 + (_P,),
+    # feeds, pcm, channel_stride, prev, end_index, end_history, end_weight,
+    # slot_lanes, step_table, index_table, ms, rows, seed_index, seed_history,
+    # seed_weight, num_blocks, num_lanes, nspb, num_channels, bits_per_sample,
+    # block_bytes, mid_side, num_trials, device, stream
+    "aad_encode_stream_bank": (_P, _P, ctypes.c_longlong) + (_P,) * 4 + (ctypes.c_longlong,) + (_P,) * 7
+    + (_I,) * 9 + (_P,),
+    # feeds, ms, seed_index, seed_history, seed_weight, step_table, index_table,
+    # end_index, end_history, end_weight, num_lanes, nspb, num_channels,
+    # bits_per_sample, device, stream
+    "aad_encode_pass_bank": (_P,) * 10 + (_I,) * 5 + (_P,),
     # qdiffs, history, weight, out, num_lanes, num_steps, device, stream
     "aad_lms_lanes": (_P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -141,3 +141,30 @@ def _launch(samples_tm, state, valid, bits_per_sample, emit_codes, given=None):
         _build.check(lib, PASS_KERNEL, err)
     launches[PASS_KERNEL] += 1
     return out, codes, sse
+
+
+def encode_pass_bank(feeds, ms, seeded: CodecState, end: CodecState, num_channels: int, nspb: int,
+                     bits_per_sample: int) -> None:
+    """Kernel 4's bank instance (CUDA only): for each of the L = F * C lanes
+    of a tick's feeds (``feeds`` (F, 5) int32, as kernel 3's bank mode takes
+    them), one measure pass over its feed's last block (``ms`` (blocks + 1,
+    nspb, L) int16, as kernel 3 staged it) from that block's header state
+    (``seeded``, leaves (L, 4) / (L,)), its end state written to its slot's
+    lanes of ``end`` (leaves (S * C, 4) / (S * C,)). Its plain version is
+    part of ``fused_encode.encode_bank_reference``."""
+    L = ms.shape[-1]
+    device = ms.device
+    _require(device.type == "cuda", f"encode_pass_bank needs CUDA tensors, got {device}")
+    _require(L == feeds.shape[0] * num_channels, f"{L} lanes for {feeds.shape[0]} feeds of {num_channels}")
+    if L == 0:
+        return
+    with span("aad.launch.encode_pass"):
+        lib = _build.library()
+        err = lib.aad_encode_pass_bank(
+            feeds.data_ptr(), ms.data_ptr(), seeded.step_index.data_ptr(), seeded.history.data_ptr(),
+            seeded.weight.data_ptr(), stepsize_table(device).data_ptr(),
+            index_table(bits_per_sample, device).data_ptr(), end.step_index.data_ptr(), end.history.data_ptr(),
+            end.weight.data_ptr(), L, nspb, num_channels, bits_per_sample, *_build.launch_target(device),
+        )
+        _build.check(lib, PASS_KERNEL, err)
+    launches[PASS_KERNEL] += 1

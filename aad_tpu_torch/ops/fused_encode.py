@@ -63,11 +63,11 @@ import torch
 
 from ..constants import FILTER_ORDER
 from ..format.framing import BlockStates, build_block_headers
-from ..format.geometry import BlockGeometry, num_blocks_for
+from ..format.geometry import BlockGeometry, encoded_block_bytes, num_blocks_for
 from ..utils.trace import count, span
 from . import _build, bitpack
 from .encode import BlockHeaderFields, _lane_valid, encode_stream_blocks_carry, lr_to_ms
-from .encode_pass import encode_pass
+from .encode_pass import encode_pass, encode_pass_bank
 from .transitions import CodecState, index_table, stepsize_table
 
 STREAM_KERNEL = "aad_encode_stream"
@@ -425,3 +425,175 @@ def _launch_wire(pcm, geo, num_trials, *, mid_side, carry, blocks_before):
     carry.turn, carry.blocks = turn, B
     return rows, carry
 
+
+
+BANK_FIELDS = 5  # a feed's row of a bank tick's table: slot, n, first sample, first byte, carried
+
+
+def write_feeds(table, slot, n, first, byte0, carried) -> None:
+    """Fill the first F rows of a bank tick's (S, BANK_FIELDS) int32 table
+    (:func:`encode_bank`'s ``feeds``), one (F,) array a field."""
+    for k, column in enumerate((slot, n, first, byte0, carried)):
+        table[: len(slot), k] = column
+
+
+class CarryBank:
+    """The carries of a bank of S slots of C lanes each, in one set of
+    buffers, read and written by slot index: each slot's state after its
+    feed's last block (history, weight and step index of lane slot * C + c)
+    and that block's samples (mid/side applied; (nspb, S * C), time-major).
+    On a card kernel 3's bank mode reads them for carried feeds and rewrites
+    the samples, and kernel 4 writes the states; on the CPU the plain
+    version does both. A slot's carry is read only while its feed has one:
+    a feed's first tick starts from a zero state."""
+
+    def __init__(self, slots: int, channels: int, nspb: int, device: torch.device):
+        lanes = slots * channels
+        self.slots, self.channels, self.nspb, self.device = slots, channels, nspb, device
+        self._state = torch.zeros((9 * lanes,), dtype=torch.int32, device=device)
+        # each lane's state after its slot's last block, leaves (S * C, 4) / (S * C,)
+        self.end = _flat_state(self._state)
+        self.prev = torch.zeros((nspb, lanes), dtype=torch.int16, device=device)
+        # a tick's scratch on a card: the staged samples and the feeds' last blocks' header states
+        self._ms = torch.empty((0,), dtype=torch.int16, device=device)
+        self._seeded = torch.empty((0,), dtype=torch.int32, device=device)
+
+    def scratch(self, blocks: int, lanes: int) -> tuple[torch.Tensor, CodecState]:
+        """A tick's (blocks, nspb, lanes) samples and (lanes, ...) header states, grown to fit."""
+        if self._ms.numel() < blocks * self.nspb * lanes:
+            self._ms = torch.empty((blocks * self.nspb * lanes,), dtype=torch.int16, device=self.device)
+        if self._seeded.numel() < 9 * lanes:
+            self._seeded = torch.empty((9 * lanes,), dtype=torch.int32, device=self.device)
+        ms = self._ms[: blocks * self.nspb * lanes].view(blocks, self.nspb, lanes)
+        return ms, _flat_state(self._seeded[: 9 * lanes])
+
+
+def _flat_state(flat: torch.Tensor) -> CodecState:
+    """A (9 L,) int32 buffer as a CodecState: step index (L,), history (L, 4), weight (L, 4)."""
+    L = flat.shape[0] // 9
+    return CodecState(history=flat[L: 5 * L].view(L, FILTER_ORDER), weight=flat[5 * L:].view(L, FILTER_ORDER),
+                      step_index=flat[:L])
+
+
+def encode_bank_reference(pcm, feeds, geo: BlockGeometry, num_trials: int, *, mid_side: bool, carry: CarryBank,
+                          channel_stride: int, num_blocks: int, total_blocks: int, total_bytes: int) -> torch.Tensor:
+    """The plain version of kernels 3 and 4 in their bank mode, on any
+    device: each feed's blocks from ``pcm`` zero-padded past its n, mid/side
+    by ``lr_to_ms``; block b of every feed that has one encoded at once by
+    :func:`encode_stream_reference`, from the carries the feeds bring
+    (block 0's, in two calls: the feeds with a previous block and those
+    without), the rows of :func:`_block_bytes`, each at its feed's bytes, a
+    short last block cut to its wire bytes; then the carries back to the
+    feeds' slots."""
+    C, nspb, bs = geo.num_channels, geo.num_samples_per_block, geo.block_size
+    F = feeds.shape[0]
+    out = torch.zeros((total_bytes,), dtype=torch.uint8, device=pcm.device)
+    if F == 0:
+        return out
+    fd = feeds.to(torch.int64)
+    slot, n, first, byte0, carried = fd.unbind(1)
+    t = torch.arange(num_blocks * nspb, device=pcm.device)
+    idx = first[:, None, None] + channel_stride * torch.arange(C, device=pcm.device)[None, :, None] + t
+    live = t < n[:, None, None]
+    x = torch.where(live, pcm[torch.where(live, idx, 0)], 0).to(torch.int16)
+    blocks = x.reshape(F, C, num_blocks, nspb).permute(2, 0, 1, 3)  # (B, F, C, nspb)
+    if mid_side:
+        blocks = lr_to_ms(blocks).to(torch.int16)
+    valid = (n[None] - nspb * torch.arange(num_blocks, device=pcm.device)[:, None]).clamp(0, nspb)  # (B, F)
+    wire = torch.tensor([[encoded_block_bytes(geo, v) for v in row] for row in valid.tolist()], device=pcm.device)
+    col = torch.arange(bs, device=pcm.device)
+
+    lanes = slot[:, None] * C + torch.arange(C, device=pcm.device)  # (F, C): the feeds' lanes in the bank
+    end = carry.end
+    state = CodecState(*(torch.where(carried.bool().view(F, *(1,) * (a.dim() - 1)), a, 0)
+                         for a in (end.history[lanes], end.weight[lanes], end.step_index[lanes])))
+    prev = carry.prev.t()[lanes]  # (F, C, nspb)
+    for b in range(num_blocks):
+        has = valid[b] > 0
+        groups = [has & (carried > 0), has & (carried == 0)] if b == 0 else [has]
+        for g in groups:
+            at = torch.nonzero(g).flatten()
+            if at.numel() == 0:
+                continue
+            headers, data, (st, last) = encode_stream_reference(
+                blocks[b: b + 1, at], valid[b: b + 1, at, None].expand(1, -1, C), geo.bits_per_sample, num_trials,
+                carry=(state.map(lambda a: a[at]), prev[at]), blocks_before=int(b > 0 or bool(carried[at[0]])),
+                pack=geo)
+            keep = col < wire[b, at, None]  # a short last block: its wire bytes alone
+            out[(byte0[at, None] + b * bs + col)[keep]] = _block_bytes(headers, data, geo)[0][keep]
+            for a, new in zip(state, st):
+                a[at] = new
+            prev[at] = last.to(torch.int16)
+    for a, got in zip(end, state):
+        a[lanes] = got
+    carry.prev.t()[lanes] = prev
+    return out
+
+
+def encode_bank(pcm: torch.Tensor, feeds: torch.Tensor, geo: BlockGeometry, num_trials: int, *, mid_side: bool,
+                carry: CarryBank, channel_stride: int, num_blocks: int, total_blocks: int,
+                total_bytes: int) -> torch.Tensor:
+    """Encode one tick of a bank of streams: each feed's next blocks, as the wire holds them.
+
+    ``feeds`` is (F, 5) int32, a row a feed: its slot in ``carry``, its
+    samples a channel n >= 1, where its first sample lies in ``pcm`` (a flat
+    int16 tensor: channel c at ``first + c * channel_stride``), its first
+    byte in the result, and whether it has a carry (its slot's blocks
+    before; else a zero state and no block before). Samples past n read as
+    zero, so only a feed's last block may be short. ``num_blocks`` is the
+    most blocks of a feed, ``total_blocks`` their sum. Returns
+    ``total_bytes`` uint8: each feed's blocks
+    as the wire holds them (header bytes, data region) from its first byte
+    on, a short last block cut to the units of its valid samples; and
+    leaves each feed's carry in its slot. On a card one
+    launch of kernel 3's bank mode and one of kernel 4's bank instance,
+    whatever F; on the CPU the plain version, :func:`encode_bank_reference`.
+    """
+    bps = geo.bits_per_sample
+    _require(bps in (2, 3, 4), f"bits_per_sample {bps}")
+    _require(num_trials >= 0, f"num_trials {num_trials}")
+    _require(geo.num_samples_per_block > FILTER_ORDER, f"{geo.num_samples_per_block} samples a block")
+    _require(not mid_side or geo.num_channels == 2, f"mid/side of {geo.num_channels} channel(s)")
+    _require(pcm.dim() == 1 and pcm.dtype == torch.int16, f"pcm must be flat int16, got {pcm.dtype} {tuple(pcm.shape)}")
+    _require(feeds.dim() == 2 and feeds.shape[1] == BANK_FIELDS and feeds.dtype == torch.int32,
+             f"feeds must be (F, {BANK_FIELDS}) int32")
+    _require(carry.channels == geo.num_channels and carry.nspb == geo.num_samples_per_block,
+             "the carry bank has another geometry")
+    _require(pcm.device == feeds.device == carry.device, "pcm, feeds and the carry bank on one device")
+    kwargs = dict(mid_side=mid_side, carry=carry, channel_stride=int(channel_stride), num_blocks=int(num_blocks),
+                  total_blocks=int(total_blocks), total_bytes=int(total_bytes))
+    if pcm.device.type == "cpu":
+        return encode_bank_reference(pcm, feeds, geo, num_trials, **kwargs)
+    _require(pcm.device.type == "cuda", f"no kernel for device {pcm.device}")
+    _require(num_trials > 0, "the bank's kernel takes the paired schedule: num_trials of 1 or more")
+    _require(pcm.is_contiguous() and feeds.is_contiguous(), "pcm and feeds must be contiguous")
+    return _launch_bank(pcm, feeds, geo, num_trials, **kwargs)
+
+
+def _launch_bank(pcm, feeds, geo, num_trials, *, mid_side, carry, channel_stride, num_blocks, total_blocks,
+                 total_bytes):
+    """encode_bank on CUDA: kernel 3's bank mode, then kernel 4's bank instance."""
+    C, nspb, bps = geo.num_channels, geo.num_samples_per_block, geo.bits_per_sample
+    L = feeds.shape[0] * C
+    device = pcm.device
+    rows = torch.empty((total_bytes,), dtype=torch.uint8, device=device)
+    if L == 0:
+        return rows
+    ms, seeded = carry.scratch(num_blocks + 1, L)
+    end = carry.end
+    with span("aad.launch.encode_stream"):
+        lib = _build.library()
+        err = lib.aad_encode_stream_bank(
+            feeds.data_ptr(), pcm.data_ptr(), channel_stride, carry.prev.data_ptr(), end.step_index.data_ptr(),
+            end.history.data_ptr(), end.weight.data_ptr(), carry.slots * C, stepsize_table(device).data_ptr(),
+            index_table(bps, device).data_ptr(), ms.data_ptr(), rows.data_ptr(), seeded.step_index.data_ptr(),
+            seeded.history.data_ptr(), seeded.weight.data_ptr(), num_blocks, L, nspb, C, bps, geo.block_size,
+            int(mid_side), num_trials, *_build.launch_target(device),
+        )
+        _build.check(lib, STREAM_KERNEL, err)
+    launches[STREAM_KERNEL] += 1
+    count("k3_rows_written", total_blocks)
+    if mid_side:
+        count("k3_rows_ms", total_blocks)
+    encode_pass_bank(feeds, ms, seeded, end, C, nspb, bps)
+    return rows

@@ -18,7 +18,8 @@ with ``aad.``:
 * API entries: ``aad.encode_batch``, ``aad.decode_batch``,
   ``aad.stream_decode.push`` (``StreamingDecoder.push``),
   ``aad.stream_encode.push`` and ``aad.stream_encode.finish``
-  (``StreamingEncoder.push`` and ``.finish``), ``aad.decode``,
+  (``StreamingEncoder.push`` and ``.finish``), ``aad.stream_encode.bank``
+  (a tick of ``StreamingEncoderBank.push``), ``aad.decode``,
   ``aad.encode``, ``aad.encode_streams_sharded``,
   ``aad.decode_blocks_sharded``, ``aad.encode_blocks_parallel_sharded``;
 * host framing and staging: ``aad.encode_batch.check`` (shapes, int16
@@ -33,7 +34,14 @@ with ``aad.``:
   those blocks: on a card kernel 3's launch in its wire mode, which pads,
   combines mid/side and writes the block bytes itself, and kernel 4's for
   the carry; on the CPU the padding, mid/side, encode and block bytes as
-  torch ops),
+  torch ops), ``aad.bank.stage`` (a bank tick's samples put after its
+  remainders in the pinned upload, its whole blocks cut, the table of its
+  feeds filled), ``aad.bank.blocks`` (the tick's encode: on a card kernel
+  3's launch in its bank mode and kernel 4's, whatever the number of
+  feeds; on the CPU their plain version), ``aad.bank.split`` (while the
+  card encodes: the tick's remainders moved into the other of the bank's
+  two uploads, its counts and finished feeds' lengths kept; its payloads
+  come back by slot after it, in ``aad.d2h``),
   ``aad.frame.blocks`` (the
   block rows' view of the payload, ``Decoder._decode_prefix``; a
   ``decode_batch``'s per-stream rows), ``aad.decode.pcm`` (the decode of
@@ -58,10 +66,16 @@ with ``aad.``:
   calls, the ones that rebuilt the carry: on a card, kernel 4's launch)
   and ``stream_encode_idle_pushes`` (pushes that encoded no block, and so
   did no device work);
+* ``StreamingEncoderBank``'s counters, a tick: ``bank_feeds`` (slots
+  pushed: samples or a finish), ``bank_blocks`` (blocks written),
+  ``bank_started`` (feeds encoded with no carry: a feed's first blocks),
+  ``bank_finished`` (feeds ended) and ``bank_idle_feeds`` (slots pushed
+  that completed no block);
 * kernel 1's counters, on a card only (``ops.fused_decode.decode_rows``):
   ``k1_rows_parsed`` (blocks whose headers the kernel parsed itself) and
   ``k1_rows_ms`` (of them, those whose left/right it combined);
-* kernel 3's counters, on a card only (``ops.fused_encode.encode_wire``):
+* kernel 3's counters, on a card only (``ops.fused_encode.encode_wire``
+  and ``encode_bank``):
   ``k3_rows_written`` (blocks whose whole wire bytes, header and data
   region, the kernel wrote itself) and ``k3_rows_ms`` (of them, those whose
   mid/side it combined);
@@ -91,6 +105,12 @@ def span(name: str):
     body while a profiler records on this thread; else one that does
     nothing."""
     return _RecordFunctionFast(name) if _profiler_enabled() else _OFF
+
+
+def recording() -> bool:
+    """Whether a profiler records on this thread: a caller whose counts cost
+    work of their own computes them only then."""
+    return _profiler_enabled()
 
 
 def count(name: str, n: int) -> None:

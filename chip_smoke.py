@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sharding   # phases 1, 2 and 16 only, for a host with several cards
     python3 chip_smoke.py --probes     # phases 1, 2 and 17 only: the decode probes
     python3 chip_smoke.py --live-encode  # phases 1, 2 and 18 only: a live stereo sender
+    python3 chip_smoke.py --bridge-encode  # phases 1, 2 and 19 only: a conference bridge's feeds
 
 Run from the repository root on a machine with a CUDA card (written for an
 H100), nvcc and PyTorch. It imports nothing of JAX or ``aad_tpu``. Phases, in
@@ -166,7 +167,20 @@ failure exits non-zero:
    push, kernels 3 and 4's device time and a push's time by the host's
    clock; then one 10-s feed on the card, its pushes timed by the host's
    clock (median and p95 a push) with the launches of kernels 3 and 4 a
-   push.
+   push;
+19. a conference bridge: ``StreamingEncoderBank`` at the benchmark's
+   ``aad-b4-s128-mono`` geometry (1 channel, 4 bits, 128-byte blocks of 224
+   samples, 2 trials), 1,024 slots of 1-16 s feeds joining over the first
+   50 ticks, 320 samples (20 ms at 16 kHz) a tick, each finished and
+   restarted at its end: BRIDGE_WIDE_TICKS ticks of every slot, feeds of
+   200-32,000 samples (most carried, about a fifth finishing and
+   restarting a tick), written into the bank's buffer, and the bridge's first ticks, bit
+   for bit against ``device="cpu"``; every feed of the first 60 ticks against a
+   ``StreamingEncoder`` a slot on the card; then BRIDGE_TICKS ticks timed
+   by the host's clock (median and p95) with the launches of kernels 3 and
+   4 a tick, 50 under the profiler (device operations and kernels 3 and
+   4's device time a tick), and the same ticks as 1,024
+   ``StreamingEncoder`` pushes each.
 
 Before the last line it prints one JSON object with a record per kernel
 (its launches on the main path, its time beside its plain version's and
@@ -210,6 +224,10 @@ LIVE_PUSH = 960  # samples/ch a live sender's push: 20 ms at 48 kHz
 # samples/ch of the feeds checked against the CPU: ending mid-block (96 samples a block), in an idle push, on a push
 LIVE_FEEDS = (2 * LIVE_PUSH + 2 * 96 + 58, LIVE_PUSH + 50, 3 * LIVE_PUSH)
 LIVE_SECONDS = 10  # the timed feed
+BRIDGE_SLOTS = 1024  # a conference bridge's feeds
+BRIDGE_PUSH = 320  # samples a tick: 20 ms at 16 kHz
+BRIDGE_TICKS = 500  # the timed ticks: 10 s of a bridge
+BRIDGE_WIDE_TICKS = 12  # the full-width ticks held against the CPU
 FLOOR_ITERS = 1000  # launches of a one-element op, the launch floor
 PILE_STREAMS = 2048  # encode_batch's full-width pile: 4,096 lanes, kernel 3's staging gate
 PILE_SECONDS = (1, 4)  # its streams' lengths, drawn from the seed
@@ -2282,6 +2300,128 @@ def live_encode_phase(cuda, card) -> None:
           f"kernel 3 {k3 / pushes:.3f}, kernel 4 {k4 / pushes:.3f} ({card})")
 
 
+def bridge_ticks(seed: int, ticks: int, joins: int = 50, samples=(16000, 256000)):
+    """The bridge's ticks: (pcm (S, 1, BRIDGE_PUSH), lengths, finish) each.
+    Slot s's feed is a clip of ``samples`` samples (log-uniform; by default
+    1-16 s; noise under a tone, cut from one long buffer at the slot's own
+    offset), joining at a tick in [0, ``joins``); its last push is shorter
+    and finishes it, and the slot starts the clip again."""
+    rng = np.random.default_rng(seed)
+    S = BRIDGE_SLOTS
+    lo, hi = samples
+    lengths = np.exp(rng.uniform(np.log(lo), np.log(hi), S)).astype(np.int64)
+    t = np.arange(2 * hi + BRIDGE_PUSH)
+    base = np.clip(9000 * np.sin(2 * np.pi * t / 173) + rng.normal(0, 1000, t.size), -32768, 32767).astype(np.int16)
+    start = rng.integers(0, hi, S)
+    join = rng.integers(0, joins, S)
+    pos = np.zeros(S, dtype=np.int64)
+    for k in range(ticks):
+        on = join <= k
+        n = np.where(on, np.minimum(BRIDGE_PUSH, lengths - pos), 0)
+        idx = (start + pos)[:, None] + np.arange(BRIDGE_PUSH)
+        pcm = np.where(np.arange(BRIDGE_PUSH) < n[:, None], base[idx], 0).astype(np.int16)[:, None, :]
+        finish = on & (pos + n == lengths)
+        pos = np.where(finish, 0, pos + n)
+        yield pcm, n, finish
+
+
+def bridge_encode_phase(cuda, card) -> None:
+    """Phase 19: a conference bridge (see the top)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    import aad_tpu_torch as at
+    from aad_tpu_torch.ops import encode_pass as ep, fused_encode as fe
+
+    cfg = at.EncodeConfig(1, 16000, 4, 128, 0, 2)
+    S = BRIDGE_SLOTS
+
+    def bank_run(device, ticks, written=False):
+        """Each tick's bytes, offsets and finished feeds' headers; ``written``:
+        each tick's samples written into the bank's buffer, as the benchmark's
+        bridge does."""
+        bank = at.StreamingEncoderBank(cfg, S, device=device)
+        out = []
+        for pcm, n, finish in ticks:
+            if written:
+                given, pcm = pcm, bank.buffer(pcm.shape[2])
+                pcm[...] = given
+            out.append((*(a.tobytes() for a in bank.push(pcm, n, finish)),
+                        [bank.header(s) for s in np.flatnonzero(finish)]))
+        return out
+
+    # every slot on from the second tick, feeds of 200-32,000 samples: every
+    # tick 1,024 feeds wide, most carried, about a fifth finished and restarted
+    wide = list(bridge_ticks(SEED + 29, BRIDGE_WIDE_TICKS, joins=2, samples=(200, 32000)))
+    got = bank_run(cuda, wide, written=True)
+    width = [int(((n > 0) | f).sum()) for _, n, f in wide]
+    ends = [int(f.sum()) for _, _, f in wide]
+    check(got == bank_run("cpu", wide), "bridge: full-width ticks on the card != device='cpu'")
+    print(f"[bridge] {BRIDGE_WIDE_TICKS} full-width ticks cuda == cpu, bit-exact: {min(width[1:])}-{max(width)} feeds "
+          f"a tick after the first, {min(ends[1:])}-{max(ends)} finished a tick")
+    first = list(bridge_ticks(SEED + 19, 60))
+    got = bank_run(cuda, first)
+    check(got[:6] == bank_run("cpu", first[:6]), "bridge: the bank on the card != device='cpu'")
+    encs = [at.StreamingEncoder(cfg, device=cuda) for _ in range(S)]
+    for (data, offsets, heads), (pcm, n, finish) in zip(got, first):
+        offsets = np.frombuffer(offsets, dtype=np.int64)
+        want, want_heads = [], []
+        for s in range(S):
+            part = encs[s].push(pcm[s, :, : n[s]]) if n[s] else b""
+            if finish[s]:
+                part += encs[s].finish()
+                want_heads.append(encs[s].header())
+                encs[s] = at.StreamingEncoder(cfg, device=cuda)
+            want.append(part)
+        check([data[offsets[s]: offsets[s + 1]] for s in range(S)] == want and heads == want_heads,
+              "bridge: a slot's bytes != its StreamingEncoder's")
+    print(f"[bridge] aad-b4-s128-mono, {S} slots, 320-sample ticks: 6 ticks cuda == cpu, 60 ticks of every feed == "
+          f"a StreamingEncoder a slot on the card, bit-exact")
+
+    ticks = list(bridge_ticks(SEED + 23, 60 + BRIDGE_TICKS + 50))
+    bank = at.StreamingEncoderBank(cfg, S, device=cuda)
+    for t in ticks[:60]:  # every slot joined
+        bank.push(*t)
+    torch.cuda.synchronize()
+    k3, k4 = fe.launches[fe.STREAM_KERNEL], ep.launches[ep.PASS_KERNEL]
+    times = []
+    for t in ticks[60: 60 + BRIDGE_TICKS]:
+        t0 = time.perf_counter()
+        bank.push(*t)
+        times.append(time.perf_counter() - t0)
+    k3, k4 = fe.launches[fe.STREAM_KERNEL] - k3, ep.launches[ep.PASS_KERNEL] - k4
+    check((k3, k4) == (BRIDGE_TICKS, BRIDGE_TICKS), f"bridge: {k3} and {k4} launches over {BRIDGE_TICKS} ticks")
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in ticks[60 + BRIDGE_TICKS:]:
+            bank.push(*t)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and not e.name().startswith("aad.")]
+    us = {k: sum(e.duration_ns() for e in ops if k in e.name()) / 50 / 1e3
+          for k in ("encode_stream_paired_kernel", "bank_encode_pass_kernel", "Memcpy HtoD", "Memcpy DtoH")}
+    q = np.quantile(np.array(times) * 1e3, [0.5, 0.95])
+    samples = sum(int(t[1].sum()) for t in ticks[60: 60 + BRIDGE_TICKS])
+    print(f"[bridge] {BRIDGE_TICKS} ticks of {S} feeds on the card: a tick {q[0]:.4f} ms median, {q[1]:.4f} ms p95 by "
+          f"the host's clock, {samples / sum(times):.4e} samples/s; launches a tick: kernel 3 {k3 / BRIDGE_TICKS:.3f}, "
+          f"kernel 4 {k4 / BRIDGE_TICKS:.3f}; under the profiler {len(ops) / 50:.3f} device operations a tick, "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in us.items()) + f" a tick ({card})")
+    encs = [at.StreamingEncoder(cfg, device=cuda) for _ in range(S)]
+    one = []
+    for pcm, n, finish in ticks[:63]:
+        t0 = time.perf_counter()
+        for s in range(S):
+            if n[s]:
+                encs[s].push(pcm[s, :, : n[s]])
+            if finish[s]:
+                encs[s].finish()
+                encs[s] = at.StreamingEncoder(cfg, device=cuda)
+        one.append(time.perf_counter() - t0)
+    print(f"[bridge] the same ticks as {S} StreamingEncoder pushes each, every slot joined: "
+          f"{np.median(one[60:]) * 1e3:.2f} ms a tick median of 3, against the bank's {q[0]:.4f} ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -2307,7 +2447,7 @@ def main() -> int:
     # and the probes' kernels (phase 17 reports their build)
     t0 = time.perf_counter()
     pool = ThreadPoolExecutor(2)
-    if sys.argv[1:] not in (["--sharding"], ["--live-encode"]):
+    if sys.argv[1:] not in (["--sharding"], ["--live-encode"], ["--bridge-encode"]):
         probes_build = pool.submit(lambda: (probes.build(), time.perf_counter() - t0))
     native_build = pool.submit(at.native.build)
     lib_path = _build.build()
@@ -2337,6 +2477,12 @@ def main() -> int:
     if sys.argv[1:] == ["--live-encode"]:
         live_encode_phase(cuda, card)
         stamp("18 live sender")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--bridge-encode"]:
+        bridge_encode_phase(cuda, card)
+        stamp("19 bridge")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -2577,6 +2723,9 @@ def main() -> int:
     # 18. a live stereo sender
     live_encode_phase(cuda, card)
     stamp("18 live sender")
+    # 19. a conference bridge
+    bridge_encode_phase(cuda, card)
+    stamp("19 bridge")
 
     print(json.dumps({"kernels": records}))
     print(smi())
